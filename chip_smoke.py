@@ -18,10 +18,9 @@ non-zero; nothing is caught and passed over):
    one warm-up ``suggest(1024)``, then 5 rounds of observe-16 +
    ``suggest(1024)`` with every kernel's launch count zeroed just before and
    read just after.
-5. ``breakdown``: one more round re-driven stage by stage with a device
-   sync between stages (where the round's time goes); ``profile``: one
-   more round under ``torch.profiler`` (launches, device busy and idle
-   share, top ops).
+5. ``profile``: one more round under ``torch.profiler``: launches, device
+   busy time and idle share, each stage's host and device ms from the
+   round's own ``suggest.*`` spans, and the top ops.
 6. ``regret``: the regret gate's scenario (``BENCH_REGRET_BASELINE.json``)
    through the port, seeds 0-4, judged by the port's copy of the gate.
 7. The ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -30,6 +29,7 @@ non-zero; nothing is caught and passed over):
 Without a CUDA device it exits with code 1 before printing any result.
 """
 
+import bisect
 import json
 import os
 import statistics
@@ -88,23 +88,24 @@ def phase_device():
 
 
 def phase_build():
-    """Compile every ``csrc/*.cu`` at once, one nvcc each."""
+    """Compile every ``csrc/*.cu`` at once, one nvcc each.  ``cached`` names
+    the sources whose library this checkout already held (not rebuilt)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from orion_tpu_torch.ops import _build
 
     sources = sorted(f[:-3] for f in os.listdir(_build._CSRC) if f.endswith(".cu"))
+    cached = [s for s in sources if os.path.exists(_build.library_path(s))]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        paths = list(pool.map(lambda s: _build.build(s, extra_flags=("-Xptxas", "-v")),
-                              sources))
+        paths = list(pool.map(_build.build, sources))
     seconds = time.perf_counter() - t0
     ptxas = {}
     for name, path in zip(sources, paths):
         with open(path + ".log") as handle:
             ptxas[name] = [line.strip() for line in handle
                            if "registers" in line or "spill" in line]
-    emit("build", seconds=seconds, sources=sources, ptxas=ptxas)
+    emit("build", seconds=seconds, sources=sources, cached=cached, ptxas=ptxas)
 
 
 def _graph_ms(fn, calls=20, reps=15):
@@ -256,66 +257,14 @@ def phase_main_path(device, q=Q, rounds=ROUNDS, **overrides):
     return algo, launches
 
 
-def phase_breakdown(algo, q=Q):
-    """One more round of ``_suggest_step``'s stages, each ended by a device
-    sync: the wall ms of each stage (the sum exceeds a real round by the
-    syncs)."""
-    from orion_tpu_torch.algo import tpu_bo
-    from orion_tpu_torch.algo.gp.acquisition import acquire, expected_improvement, select_q
-    from orion_tpu_torch.algo.gp.gp import fit_gp, posterior_norm
-
-    dev = algo.device
-    x, y, mask, _ = algo._hist.fit_view()
-    best_x = torch.from_numpy(algo._host.x[algo._host.best_idx].copy()).to(dev)
-    n_cand, d = algo.n_candidates, x.shape[1]
-    qb = tpu_bo._next_pow2(q, floor=8)
-    stages = {}
-
-    def timed(name, fn):
-        _sync(dev)
-        t0 = time.perf_counter()
-        out = fn()
-        _sync(dev)
-        stages[name] = (time.perf_counter() - t0) * 1e3
-        return out
-
-    draws = timed("draws", lambda: tpu_bo.sample_suggest_draws(
-        algo.generator, q=qb, n_candidates=n_cand, d_free=d, d=d, acq=algo.acq,
-        local_frac=algo.local_frac, trust_region=True, device=dev))
-    state = timed("fit_gp", lambda: fit_gp(x, y, mask, n_steps=algo.fit_steps,
-                                           init=algo._gp_state.hypers, y_transform="copula"))
-    tr = torch.tensor(algo._tr_length, device=dev)
-    ls = torch.exp(state.hypers.log_lengthscales)
-
-    def candidates():
-        chol, mu = tpu_bo._topk_cov_chol(x, y, mask, d, k=min(64, x.shape[0]))
-        return chol, tpu_bo._make_tr_candidates(draws, n_cand, d, best_x, tr, ls,
-                                                algo.local_frac, chol, mu)
-
-    chol, cands = timed("candidates", candidates)
-
-    def polish():
-        lb, ub = tpu_bo._tr_box(best_x, tr, ls)
-        starts = torch.clamp(best_x[None, :] + (0.5 * draws.polish_z) @ chol.T, lb, ub)
-        return tpu_bo._polish_candidates(state, algo.kernel, starts, lb, ub)
-
-    polished = timed("polish", polish)
-    cands = torch.cat([cands[:-polished.shape[0]], polished])
-    y_norm = (state.y - state.y_mean) / state.y_std
-    best = torch.min(torch.where(state.mask > 0, y_norm, torch.full_like(y_norm, float("inf"))))
-    idx = timed("rff_thompson", lambda: acquire(draws.acq, state, cands, qb, best=best))
-    mean, std = timed("posterior_pool", lambda: posterior_norm(state, cands))
-    ei_rank = timed("ei_select", lambda: select_q(expected_improvement(mean, std, best),
-                                                  min(4 * qb, n_cand)))
-    timed("dedup_gather", lambda: cands[tpu_bo._dedup_fill_device(idx, ei_rank, qb)])
-    emit("breakdown", stage_ms=stages, total_ms=sum(stages.values()))
-
-
 def phase_profile(algo, q=Q):
     """One more main-path round under ``torch.profiler``: kernels launched,
     the device's busy time (the union of its kernel intervals) against the
-    round's wall time, and the ops that take the most device and host
-    time.  ``idle_share`` is None when the trace holds no device events."""
+    round's wall time, each ``suggest.*`` stage's host and device ms (the
+    ``record_function`` spans of ``TPUBO._suggest_cube`` and
+    ``_suggest_step``; a kernel counts for the span it starts in), and the
+    ops that take the most device and host time.  ``idle_share`` is None
+    when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -328,12 +277,33 @@ def phase_profile(algo, q=Q):
         algo.suggest_batch(q)
         _sync(algo.device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                     if e.device_type == DeviceType.CUDA)
+    events = prof.events()
+    # Device-side copies of the spans cover the gaps between their kernels:
+    # leave them out of the busy time.
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == DeviceType.CUDA and not e.name.startswith("suggest."))
     busy_us, end = 0.0, float("-inf")
     for start, stop in kernels:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
+    # A stage's device time is that of the kernels that start inside its
+    # span.  Not the profiler's per-op tree: the backward passes run on
+    # autograd's device thread, outside the main thread's spans.
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.device_type == DeviceType.CPU and e.name.startswith("suggest."))
+    stages = {name: [0.0, 0.0] for _, _, name in spans}
+    stages["outside_spans"] = [None, 0.0]
+    for start, stop, name in spans:
+        stages[name][0] += (stop - start) / 1e3
+    starts = [span[0] for span in spans]
+    for start, stop in kernels:
+        i = bisect.bisect_right(starts, start) - 1
+        inside = i >= 0 and start < spans[i][1]
+        stages[spans[i][2] if inside else "outside_spans"][1] += (stop - start) / 1e3
+    for name in ("suggest.draws", "suggest.fit_gp", "suggest.candidates", "suggest.polish",
+                 "suggest.acquire", "suggest.ei_rank", "suggest.select"):
+        if name not in stages:
+            raise AssertionError(f"the profiled round recorded no {name} span")
     averages = prof.key_averages()
 
     def top(attr):
@@ -343,6 +313,7 @@ def phase_profile(algo, q=Q):
     emit("profile", q=q, wall_ms=wall_ms, device_events=len(kernels),
          device_busy_ms=busy_us / 1e3,
          idle_share=(1.0 - busy_us / 1e3 / wall_ms) if kernels else None,
+         stage_host_device_ms=stages,
          top_self_device_ms=top("self_device_time_total"),
          top_self_cpu_ms=top("self_cpu_time_total"))
 
@@ -405,7 +376,6 @@ def main():
     run("build", phase_build)
     cases = run("kernel_checks", check_fused_gram, device)
     algo, launches = run("main_path", phase_main_path, device)
-    run("breakdown", phase_breakdown, algo)
     run("profile", phase_profile, algo)
     run("regret", phase_regret, device)
     emit("seconds", **seconds)

@@ -19,6 +19,7 @@ import torch
 
 from orion_tpu_torch.algo.gp.kernels import cross_kernel_matrix, kernel_matrix
 from orion_tpu_torch.algo.sampling import masked_copula_transform
+from orion_tpu_torch.device import resolve_device
 
 JITTER = 1e-5
 
@@ -57,7 +58,10 @@ class GPState(NamedTuple):
     health: Optional[torch.Tensor] = None  # (len(DEVICE_HEALTH_FIELDS),)
 
 
-def init_hypers(n_dims, device="cpu"):
+def init_hypers(n_dims, device=None):
+    """The reference's starting hyperparameters on ``device`` (``None``
+    means ``cuda``, see :func:`~orion_tpu_torch.device.resolve_device`)."""
+    device = resolve_device(device)
     return GPHypers(
         log_lengthscales=torch.full((n_dims,), _f32log(0.3), dtype=torch.float32,
                                     device=device),

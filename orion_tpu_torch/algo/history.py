@@ -23,6 +23,8 @@ in place (``copy_`` into a slice) on every observe.
 import numpy as np
 import torch
 
+from orion_tpu_torch.device import resolve_device
+
 
 def _next_pow2(n, floor=64):
     out = floor
@@ -49,16 +51,18 @@ def _local_subset(x, y, mask, center, m, m_pad, dist_cols):
 
 
 class DeviceHistory:
-    """Pow-2-padded device buffers ``(x, y, mask)`` for one observation set.
+    """Pow-2-padded device buffers ``(x, y, mask)`` for one observation set
+    on ``device`` (``None`` means ``cuda`` and raises where no card is
+    present).
 
     ``append`` is the only mutator; ``count`` is the number of real rows;
     everything past it is zero.
     """
 
-    def __init__(self, n_cols, floor=64, device="cpu"):
+    def __init__(self, n_cols, floor=64, device=None):
         self.n_cols = int(n_cols)
         self.floor = int(floor)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.count = 0
         self.cap = 0
         self._x = None
@@ -69,7 +73,7 @@ class DeviceHistory:
         self._cow = False
 
     @classmethod
-    def from_host(cls, x, y, floor=64, device="cpu"):
+    def from_host(cls, x, y, floor=64, device=None):
         """Bulk-build from host arrays (state restore / resume)."""
         x = np.asarray(x, dtype=np.float32)
         hist = cls(x.shape[1] if x.ndim == 2 else 0, floor=floor, device=device)

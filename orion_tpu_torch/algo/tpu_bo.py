@@ -14,6 +14,10 @@ keys.  Here the round runs eagerly and is a function of its random draws
 instance's ``torch.Generator``, and the parity tests replay the reference's
 key schedule through ``jax.random`` and pass the same numbers to both.
 
+Each stage of a round runs inside a ``torch.profiler.record_function`` span
+named ``suggest.<stage>`` (draws, fit_gp, candidates, polish, acquire,
+ei_rank, select), so a profiled round reads as its own breakdown.
+
 Not ported yet: the fused-plan and serve-coalescing machinery (``FusedPlan``,
 ``make_fused_plan``, ``run_fused_plan``, ``PlanPrepToken``), the jit prewarmer
 (``prewarm`` is accepted and has no effect) and the device mesh
@@ -24,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from orion_tpu_torch.algo.base import BaseAlgorithm, algo_registry
 from orion_tpu_torch.algo.gp.acquisition import (
@@ -317,35 +322,39 @@ def _suggest_step(draws, x, y, mask, best_x, warm_hypers, tr_length=None, *, q,
     y = y.to(torch.float32)
     mask = mask.to(torch.float32)
     best_x = best_x.to(torch.float32)
-    state = fit_gp(
-        x, y, mask, kind=kernel, n_steps=fit_steps, init=warm_hypers,
-        y_transform=y_transform,
-    )
+    with record_function("suggest.fit_gp"):
+        state = fit_gp(
+            x, y, mask, kind=kernel, n_steps=fit_steps, init=warm_hypers,
+            y_transform=y_transform,
+        )
     d_free = x.shape[1] - fixed_tail_cols
     if trust_region:
-        cov_chol, elite_mu = _topk_cov_chol(
-            x[:, :d_free], y, mask, d_free, k=min(64, x.shape[0])
-        )
-        lengthscales = torch.exp(state.hypers.log_lengthscales[:d_free])
-        free_candidates = _make_tr_candidates(
-            draws, n_candidates, d_free, best_x[:d_free], tr_length, lengthscales,
-            local_frac, cov_chol, elite_mu, perturb_dims=tr_perturb_dims,
-        )
+        with record_function("suggest.candidates"):
+            cov_chol, elite_mu = _topk_cov_chol(
+                x[:, :d_free], y, mask, d_free, k=min(64, x.shape[0])
+            )
+            lengthscales = torch.exp(state.hypers.log_lengthscales[:d_free])
+            free_candidates = _make_tr_candidates(
+                draws, n_candidates, d_free, best_x[:d_free], tr_length, lengthscales,
+                local_frac, cov_chol, elite_mu, perturb_dims=tr_perturb_dims,
+            )
         # Gradient-polish elite-covariance-jittered incumbent copies on the
         # posterior mean and splice them over the pool's tail.
-        lb, ub = _tr_box(best_x[:d_free], tr_length, lengthscales)
-        n_polish = _n_polish(q, n_candidates)
-        starts = torch.clamp(
-            best_x[None, :d_free] + (0.5 * draws.polish_z) @ cov_chol.T, lb, ub
-        )
-        polished = _polish_candidates(
-            state, kernel, starts, lb, ub, fixed_tail_cols=fixed_tail_cols
-        )
-        free_candidates = torch.cat([free_candidates[:-n_polish], polished], dim=0)
+        with record_function("suggest.polish"):
+            lb, ub = _tr_box(best_x[:d_free], tr_length, lengthscales)
+            n_polish = _n_polish(q, n_candidates)
+            starts = torch.clamp(
+                best_x[None, :d_free] + (0.5 * draws.polish_z) @ cov_chol.T, lb, ub
+            )
+            polished = _polish_candidates(
+                state, kernel, starts, lb, ub, fixed_tail_cols=fixed_tail_cols
+            )
+            free_candidates = torch.cat([free_candidates[:-n_polish], polished], dim=0)
     else:
-        free_candidates = _make_candidates(
-            draws, n_candidates, best_x[:d_free], local_frac, local_sigma
-        )
+        with record_function("suggest.candidates"):
+            free_candidates = _make_candidates(
+                draws, n_candidates, best_x[:d_free], local_frac, local_sigma
+            )
     if fixed_tail_cols:
         tail = torch.ones((free_candidates.shape[0], fixed_tail_cols),
                           dtype=free_candidates.dtype, device=free_candidates.device)
@@ -362,44 +371,47 @@ def _suggest_step(draws, x, y, mask, best_x, warm_hypers, tr_length=None, *, q,
         best = torch.min(torch.where(top, y_norm, inf))
     else:
         best = torch.min(torch.where(state.mask > 0, y_norm, inf))
-    if acq == "joint_thompson":
-        idx = joint_thompson(draws.acq, state, candidates, q, kind=kernel)
-    else:
-        idx = acquire(draws.acq, state, candidates, q, kind=kernel, acq=acq, best=best,
-                      beta=beta)
-    mean, std = posterior_norm(state, candidates, kind=kernel)
-    ei = expected_improvement(mean, std, best)
-    ei_rank = select_q(ei, min(4 * q, n_candidates))
-    if trust_region:
-        # One pure-exploitation member per batch: the pool's posterior-mean
-        # minimizer, unless it is already observed (then re-suggesting it
-        # would loop on duplicate trials).
-        exploit_idx = torch.argmin(mean)
-        exploit_cand = free_candidates[exploit_idx]
-        d2_obs = torch.sum((x[:, :d_free] - exploit_cand[None, :]) ** 2, dim=1)
-        already_observed = torch.any((d2_obs < 1e-12) & (mask > 0))
-        injected = torch.where(already_observed, idx[0], exploit_idx)
-        idx = torch.cat([injected[None], idx])[:q]
-    final_idx = _dedup_fill_device(idx, ei_rank, q)
-    # Packed health vector (health.DEVICE_HEALTH_FIELDS), from intermediates
-    # already on the device.
-    ls = torch.exp(state.hypers.log_lengthscales[:d_free])
-    sorted_idx = torch.sort(final_idx).values
-    n_unique = 1.0 + torch.sum((sorted_idx[1:] != sorted_idx[:-1]).to(ls.dtype))
-    health = torch.stack(
-        [
-            state.mll,
-            torch.min(ls),
-            torch.mean(ls),
-            torch.max(ls),
-            torch.exp(state.hypers.log_noise),
-            torch.max(ei),
-            torch.mean(ei),
-            n_unique / q,
-        ]
-    ).to(torch.float32)
-    state = state._replace(health=health)
-    return free_candidates[final_idx], state
+    with record_function("suggest.acquire"):
+        if acq == "joint_thompson":
+            idx = joint_thompson(draws.acq, state, candidates, q, kind=kernel)
+        else:
+            idx = acquire(draws.acq, state, candidates, q, kind=kernel, acq=acq, best=best,
+                          beta=beta)
+    with record_function("suggest.ei_rank"):
+        mean, std = posterior_norm(state, candidates, kind=kernel)
+        ei = expected_improvement(mean, std, best)
+        ei_rank = select_q(ei, min(4 * q, n_candidates))
+    with record_function("suggest.select"):
+        if trust_region:
+            # One pure-exploitation member per batch: the pool's posterior-mean
+            # minimizer, unless it is already observed (then re-suggesting it
+            # would loop on duplicate trials).
+            exploit_idx = torch.argmin(mean)
+            exploit_cand = free_candidates[exploit_idx]
+            d2_obs = torch.sum((x[:, :d_free] - exploit_cand[None, :]) ** 2, dim=1)
+            already_observed = torch.any((d2_obs < 1e-12) & (mask > 0))
+            injected = torch.where(already_observed, idx[0], exploit_idx)
+            idx = torch.cat([injected[None], idx])[:q]
+        final_idx = _dedup_fill_device(idx, ei_rank, q)
+        # Packed health vector (health.DEVICE_HEALTH_FIELDS), from intermediates
+        # already on the device.
+        ls = torch.exp(state.hypers.log_lengthscales[:d_free])
+        sorted_idx = torch.sort(final_idx).values
+        n_unique = 1.0 + torch.sum((sorted_idx[1:] != sorted_idx[:-1]).to(ls.dtype))
+        health = torch.stack(
+            [
+                state.mll,
+                torch.min(ls),
+                torch.mean(ls),
+                torch.max(ls),
+                torch.exp(state.hypers.log_noise),
+                torch.max(ei),
+                torch.mean(ei),
+                n_unique / q,
+            ]
+        ).to(torch.float32)
+        state = state._replace(health=health)
+        return free_candidates[final_idx], state
 
 
 @algo_registry.register("tpu_bo")
@@ -602,12 +614,13 @@ class TPUBO(BaseAlgorithm):
             hypers = warm.hypers
             steps = self.refit_steps if self.refit_steps is not None else self.fit_steps
         step_kw = self._step_kw()
-        draws = sample_suggest_draws(
-            self._generator, q=q, n_candidates=self.n_candidates, d_free=x_dev.shape[1],
-            d=x_dev.shape[1], acq=self.acq, local_frac=self.local_frac,
-            trust_region=self.trust_region, tr_perturb_dims=self.tr_perturb_dims,
-            device=self.device,
-        )
+        with record_function("suggest.draws"):
+            draws = sample_suggest_draws(
+                self._generator, q=q, n_candidates=self.n_candidates, d_free=x_dev.shape[1],
+                d=x_dev.shape[1], acq=self.acq, local_frac=self.local_frac,
+                trust_region=self.trust_region, tr_perturb_dims=self.tr_perturb_dims,
+                device=self.device,
+            )
         tr = torch.tensor(self._tr_length, dtype=torch.float32, device=self.device)
         rows, state = _suggest_step(
             draws, x_dev, y_dev, mask_dev, best_x, hypers, tr, q=q, fit_steps=steps,

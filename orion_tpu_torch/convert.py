@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from orion_tpu_torch.algo.gp.gp import GPHypers, GPState
+from orion_tpu_torch.device import resolve_device
 
 
 def _tensor(value, device, dtype=torch.float32):
@@ -19,9 +20,11 @@ def _tensor(value, device, dtype=torch.float32):
     return torch.as_tensor(np.array(value), dtype=dtype, device=device)
 
 
-def gp_state_from_numpy(state, device="cpu"):
+def gp_state_from_numpy(state, device=None):
     """A reference ``GPState`` (x, y, mask, hypers, chol, alpha, y_mean,
-    y_std, mll, health) as the port's :class:`GPState` on ``device``."""
+    y_std, mll, health) as the port's :class:`GPState` on ``device``
+    (``None`` means ``cuda`` and raises where no card is present)."""
+    device = resolve_device(device)
     hypers = GPHypers(*(_tensor(leaf, device) for leaf in state.hypers))
     return GPState(
         x=_tensor(state.x, device),

@@ -21,9 +21,11 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_ROOT, "build", "orion_tpu_torch")
 
+#: ``-Xptxas -v`` writes each kernel's register and spill report into the
+#: build log (``<library>.log``).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -46,11 +48,11 @@ def library_path(name):
     return os.path.join(BUILD_DIR, digest[:16], f"lib{name}.so")
 
 
-def build(name, extra_flags=()):
+def build(name):
     """Compile ``csrc/<name>.cu`` unless its library exists; returns the
-    library's path, with nvcc's output beside it in ``<path>.log``.  A
-    failed build raises with nvcc's output.  The
-    library is written to a temporary name and renamed into place, so a
+    library's path, with nvcc's output (ptxas' register report included)
+    beside it in ``<path>.log``.  A failed build raises with nvcc's
+    output.  The library is written to a temporary name and renamed into place, so a
     concurrent or interrupted build never leaves a partial file behind."""
     target = library_path(name)
     if os.path.exists(target):
@@ -58,7 +60,7 @@ def build(name, extra_flags=()):
     os.makedirs(os.path.dirname(target), exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(target))
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as exc:

@@ -58,7 +58,7 @@ def test_select_q_breaks_ties_like_top_k():
 def test_rff_thompson_on_injected_draws(kind):
     x, y, mask = padded_history(2, 40, 64, 6)
     state_j = jgp.fit_gp(x, y, mask, kind=kind, n_steps=10, y_transform="copula")
-    state_t = gp_state_from_numpy(state_j)
+    state_t = gp_state_from_numpy(state_j, device="cpu")
     cands = np.random.default_rng(3).uniform(size=(512, 6)).astype(np.float32)
     key = jax.random.PRNGKey(4)
     want = jax.jit(jacq.rff_thompson, static_argnames=("q", "kind"))(
@@ -71,7 +71,7 @@ def test_rff_thompson_on_injected_draws(kind):
 def test_acquire_ei_ucb_and_marginal_thompson():
     x, y, mask = padded_history(5, 40, 64, 4)
     state_j = jgp.fit_gp(x, y, mask, n_steps=10)
-    state_t = gp_state_from_numpy(state_j)
+    state_t = gp_state_from_numpy(state_j, device="cpu")
     cands = np.random.default_rng(6).uniform(size=(256, 4)).astype(np.float32)
     key = jax.random.PRNGKey(7)
     jax_acquire = jax.jit(jacq.acquire, static_argnames=("q", "kind", "acq"))

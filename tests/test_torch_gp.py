@@ -3,8 +3,9 @@
 
 Tolerances: kernel values atol 1e-5 (float32, same expansion; the
 ``aa + bb - 2ab`` cancellation scales ulp-level differences of the norms by
-their magnitude, as in the reference's own kernel tests); the MLL and its gradient rtol 1e-4 (a Cholesky of a 64x64 float32
-matrix in two LAPACK call paths); fitted hyperparameters after 10 adam steps
+their magnitude, as in the reference's own kernel tests); the MLL and its
+gradient rtol 1e-4 (a Cholesky of a 64x64 float32 matrix in two LAPACK call
+paths); fitted hyperparameters after 10 adam steps
 rtol 1e-3 (per-step rounding compounds through the optimizer); posterior
 atol 1e-4 (triangular solve of a fitted factor).
 """
@@ -98,7 +99,7 @@ def test_fit_gp_matches(n_pad, n, y_transform):
 def test_posterior_norm_matches():
     x, y, mask = padded_history(4, 40, 64, 6)
     state_j = jgp.fit_gp(x, y, mask, kind="matern52", n_steps=10, y_transform="copula")
-    state_t = gp_state_from_numpy(state_j)
+    state_t = gp_state_from_numpy(state_j, device="cpu")
     xq = np.random.default_rng(5).uniform(size=(300, 6)).astype(np.float32)
     mean_j, std_j = jgp.posterior_norm(state_j, xq)
     mean_t, std_t = tgp.posterior_norm(state_t, to_torch(xq))

@@ -20,7 +20,7 @@ def _batches(seed, d):
 
 
 def test_append_and_fit_view_match():
-    port, ref = DeviceHistory(3), JaxDeviceHistory(3)
+    port, ref = DeviceHistory(3, device="cpu"), JaxDeviceHistory(3)
     host_t, host_j = HostHistory(3), JaxHostHistory(3)
     for rows, ys in _batches(0, 3):
         port.append(rows, ys)
@@ -41,7 +41,8 @@ def test_local_view_ties_break_to_lowest_index():
     grid = np.array([[i, j] for i in range(-3, 4) for j in range(-3, 4)], np.float32) / 8.0
     rows = np.concatenate([grid + 0.5, grid[::-1] + 0.5, np.full((3, 2), 0.5, np.float32)])
     ys = np.arange(rows.shape[0], dtype=np.float32)
-    port, ref = DeviceHistory.from_host(rows, ys), JaxDeviceHistory.from_host(rows, ys)
+    port = DeviceHistory.from_host(rows, ys, device="cpu")
+    ref = JaxDeviceHistory.from_host(rows, ys)
     center = np.array([0.5, 0.5], np.float32)
     for m in (5, 20, 64):
         got, want = port.local_view(center, m), ref.local_view(center, m)
@@ -54,7 +55,7 @@ def test_local_view_ties_break_to_lowest_index():
 
 
 def test_deepcopy_is_copy_on_write():
-    port = DeviceHistory(2)
+    port = DeviceHistory(2, device="cpu")
     port.append(np.ones((3, 2), np.float32), np.ones(3, np.float32))
     clone = copy.deepcopy(port)
     clone.append(np.zeros((2, 2), np.float32), np.full(2, 7.0, np.float32))

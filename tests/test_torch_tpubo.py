@@ -62,6 +62,26 @@ def test_entry_points_default_to_cuda():
         tbo.TPUBO(build_space(PRIORS), device="cpu", use_mesh=True)
 
 
+def test_building_blocks_default_to_cuda():
+    """The public building blocks take ``device=None`` too, meaning CUDA:
+    the history buffers, the starting hyperparameters and a converted
+    reference GP state all raise here rather than land on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from orion_tpu.algo.gp.gp import fit_gp as jax_fit_gp
+    from orion_tpu_torch.algo.gp.gp import init_hypers
+    from orion_tpu_torch.algo.history import DeviceHistory
+    from orion_tpu_torch.convert import gp_state_from_numpy
+
+    x = np.random.default_rng(5).uniform(size=(8, 3)).astype(np.float32)
+    state_j = jax_fit_gp(x, np.sum(x, axis=1), np.ones(8, np.float32), n_steps=1)
+    for build in (lambda: DeviceHistory(3), lambda: DeviceHistory.from_host(x, x[:, 0]),
+                  lambda: init_hypers(3), lambda: gp_state_from_numpy(state_j)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    assert gp_state_from_numpy(state_j, device="cpu").x.device.type == "cpu"
+
+
 def test_state_dict_round_trip():
     space = build_space(PRIORS)
     algo = create_algo(space, CONFIG, seed=1, device="cpu")
@@ -103,7 +123,8 @@ def test_reference_state_restored_into_port_gives_same_step():
     draws = jax_suggest_draws(key, q=16, n_candidates=512, d_free=6, d=6, acq="thompson",
                               local_frac=0.3, trust_region=True)
     x_t, y_t, m_t, _ = port._hist.fit_view()
-    rows_t, _ = tbo._suggest_step(draws, x_t, y_t, m_t, to_torch(port._host.x[port._host.best_idx]),
-                                  port._gp_state.hypers, torch.tensor(port._tr_length), **statics)
+    best_t = to_torch(port._host.x[port._host.best_idx])
+    rows_t, _ = tbo._suggest_step(draws, x_t, y_t, m_t, best_t, port._gp_state.hypers,
+                                  torch.tensor(port._tr_length), **statics)
     np.testing.assert_allclose(rows_t.numpy(), np.asarray(rows_j), atol=1e-5)
     assert seed_from_rng_key(state["rng_key"]) == algo_state_from_jax(state)["seed"]
