@@ -11,7 +11,10 @@ non-zero; nothing is caught and passed over):
    all at once (one nvcc per source), with ptxas' register report.
 3. kernel checks: each kernel against its plain PyTorch version on the card
    at the main path's shape and the others of ``CASES`` (fails above
-   1e-5 * max(1, amplitude)), with CUDA-event times and the card's bound.
+   1e-5 * max(1, amplitude)), with CUDA-event times, the card's bound, the
+   achieved bytes/s and share of that bound, and ``fill_ms``: one
+   ``fill_`` of an output of the same size, the card's practical floor for
+   writing that many bytes in one launch (a yardstick only).
 4. ``main_path``: the headline round through the public API, at full width
    -- Hartmann6, 130 observed, ``tpu_bo`` with 16384 candidates, 40 fit
    steps, local_frac 0.3, trust region, RFF-Thompson, Matern-5/2, copula --
@@ -47,9 +50,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-#: fused_gram shapes (m, n, d): the main path's first.
+#: fused_gram shapes (m, n, d): the main path's first, then one for each
+#: path of the kernel's launch plan and the edges: n odd (scalar stores), a
+#: single element, a single tile, and 100000 rows (many tiles per block).
 CASES = [(16384, 256, 6), (16384, 1024, 6), (4096, 256, 8), (8192, 512, 50),
-         (300, 70, 6), (513, 129, 130)]
+         (300, 70, 6), (513, 129, 130), (16384, 257, 6), (1, 1, 1), (64, 4, 6),
+         (100000, 256, 6)]
 KINDS = ("matern52", "rbf")
 
 Q = 1024
@@ -155,11 +161,17 @@ def _eager_ms(fn, reps=30):
     return statistics.median(times)
 
 
+def gram_bytes(m, n, d):
+    """Bytes ``fused_gram`` must move: each input read once, the output
+    written once."""
+    return 4 * (m * d + n * d + d + 1 + m * n)
+
+
 def gram_bound(m, n, d):
-    """Least time for ``fused_gram`` on an H100: inputs read once and the
-    output written once at 3.35 TB/s, against its float32 operations
-    (2d for the cross term, 2 per norm, ~20 for the epilogue) at 67 TFLOP/s."""
-    nbytes = 4 * (m * d + n * d + d + 1 + m * n)
+    """Least time for ``fused_gram`` on an H100: its bytes at 3.35 TB/s,
+    against its float32 operations (2d for the cross term, 2 per norm, ~20
+    for the epilogue) at 67 TFLOP/s."""
+    nbytes = gram_bytes(m, n, d)
     flops = m * n * (2 * d + 4 + 20)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -188,6 +200,9 @@ def check_fused_gram(device):
             cases.append({
                 "m": m, "n": n, "d": d, "kind": kind, "max_abs_err": err, "tolerance": limit,
                 "ms": kernel_ms, "kernel_ms": kernel_ms,
+                "gbytes_per_s": gram_bytes(m, n, d) / (kernel_ms * 1e-3) / 1e9,
+                "bound_share": bound_ms / kernel_ms,
+                "fill_ms": _graph_ms(lambda: torch.empty((m, n), device=device).fill_(1.0)),
                 "plain_ms": _graph_ms(lambda: fused_gram_reference(xa, xb, ils, amp, kind=kind)),
                 "eager_ms": _eager_ms(lambda: fused_gram(xa, xb, ils, amp, kind=kind)),
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -394,6 +409,8 @@ def main():
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
+        "bound_share": main_case["bound_share"],
+        "fill_ms": main_case["fill_ms"],
         "library_ms": None,
         "shape": list(CASES[0]),
         "cases": cases,

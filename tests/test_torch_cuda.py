@@ -21,23 +21,101 @@ def cuda():
     return torch.device("cuda")
 
 
+def _inputs(device, m, n, d, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    xa = torch.rand((m, d), generator=gen, device=device)
+    xb = torch.rand((n, d), generator=gen, device=device)
+    ils = 0.5 + 2.5 * torch.rand((d,), generator=gen, device=device)
+    return xa, xb, ils, torch.tensor(1.7, device=device)
+
+
+# (m, n, d) and the launch plan's path for it: (resident b, float4 stores).
+SHAPES = [
+    ((16384, 256, 6), (True, True)),  # the main path
+    ((300, 70, 6), (True, False)),  # ragged on every axis
+    ((513, 129, 130), (False, False)),  # chunked over d, ragged
+    ((8192, 512, 50), (False, True)),  # chunked, b 100 KB
+    ((16384, 257, 6), (True, False)),  # n odd
+    ((1, 1, 1), (True, False)),
+    ((64, 4, 6), (True, True)),  # a single tile
+    ((100000, 256, 6), (True, True)),  # many tiles per persistent block
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["matern52", "rbf"])
-@pytest.mark.parametrize("m,n,d", [(16384, 256, 6), (300, 70, 6), (513, 129, 130)])
-def test_fused_gram_kernel_matches_plain_version(cuda, kind, m, n, d):
+@pytest.mark.parametrize("shape,path", SHAPES, ids=["x".join(map(str, s)) for s, _ in SHAPES])
+def test_fused_gram_kernel_matches_plain_version(cuda, kind, shape, path):
     """The sm_90a kernel against its plain version (atol 1e-5 * amplitude,
-    as chip_smoke.py), with one launch counted."""
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    xa = torch.rand((m, d), generator=gen, device=cuda)
-    xb = torch.rand((n, d), generator=gen, device=cuda)
-    ils = 0.5 + 2.5 * torch.rand((d,), generator=gen, device=cuda)
-    amp = torch.tensor(1.7, device=cuda)
+    as chip_smoke.py) on the launch plan's path for the shape, with one
+    launch counted."""
+    m, n, d = shape
+    plan = gram._launch_plan(m, n, d, True)
+    assert (plan.resident, plan.vec) == path
+    xa, xb, ils, amp = _inputs(cuda, m, n, d)
     before = gram.fused_gram.launches
     got = fused_gram(xa, xb, ils, amp, kind=kind)
     assert gram.fused_gram.launches == before + 1
     want = fused_gram_reference(xa, xb, ils, amp, kind=kind)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-5 * 1.7
+
+
+@pytest.mark.cuda
+def test_fused_gram_is_one_launch_per_call(cuda):
+    """One call: one count, and one device kernel -- the sm_90a kernel,
+    no scaling or copy before or after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    xa, xb, ils, amp = _inputs(cuda, 16384, 256, 6)
+    fused_gram(xa, xb, ils, amp)  # build and load outside the profile
+    torch.cuda.synchronize()
+    before = gram.fused_gram.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused_gram(xa, xb, ils, amp)
+        torch.cuda.synchronize()
+    assert gram.fused_gram.launches == before + 1
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "gram_kernel" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(16384, 256, 6), (300, 70, 6), (513, 129, 130),
+                                   (8192, 512, 50)])
+def test_fused_gram_scales_in_the_kernel_as_the_wrapper_did(cuda, m, n, d):
+    """The kernel's scaled element is the one f32 product ``x * inv_ls``, so
+    scaling inside it gives exactly what pre-scaled inputs with unit
+    lengthscales give."""
+    xa, xb, ils, amp = _inputs(cuda, m, n, d)
+    got = fused_gram(xa, xb, ils, amp)
+    pre = fused_gram(xa * ils, xb * ils, torch.ones_like(ils), amp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pre)
+
+
+@pytest.mark.cuda
+def test_fused_gram_unaligned_output_takes_scalar_stores(cuda):
+    """An output 4 bytes off 16-byte alignment with n % 4 == 0 takes the
+    scalar path; the kernel refuses a float4 plan for it."""
+    m, n, d = 1000, 256, 6
+    xa, xb, ils, amp = _inputs(cuda, m, n, d)
+    out = torch.full((m * n + 1,), float("nan"), device=cuda)[1:].view(m, n)
+    assert out.data_ptr() % 16 != 0
+    lib = gram._lib()
+
+    def launch(plan):
+        return lib.orion_fused_gram_f32(
+            xa.data_ptr(), xb.data_ptr(), ils.data_ptr(), amp.data_ptr(), out.data_ptr(),
+            m, n, d, 0, *plan, torch.cuda.current_stream().cuda_stream)
+
+    plan = gram._launch_plan(m, n, d, False)
+    assert not plan.vec
+    assert launch(plan._replace(vec=True)) != 0  # refused, nothing launched
+    assert launch(plan) == 0
+    want = fused_gram_reference(xa, xb, ils, amp)
+    torch.cuda.synchronize()
+    assert float((out - want).abs().max()) <= 1e-5 * 1.7
 
 
 @pytest.mark.cuda

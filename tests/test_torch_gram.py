@@ -5,21 +5,27 @@ On the CPU the wrapper runs its plain PyTorch version, so these tests hold
 that version to ``orion_tpu``'s ``fused_gram`` (Pallas interpret mode, as
 ``tests/unit/test_ops.py`` runs it) and ``kernel_matrix``.  The CUDA kernel
 itself is held to the same plain version on the card by ``chip_smoke.py``
-and by ``test_torch_cuda.py``.
+and by ``test_torch_cuda.py``; here the host-side launch plan that picks
+its path is checked at every shape the card runs.
 
 Tolerance: atol 1e-5, the reference's own kernel-vs-XLA tolerance — both
 sides are float32 with the same expansion; only summation order differs.
 """
+
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import CASES
 from orion_tpu.algo.gp.kernels import kernel_matrix as jax_kernel_matrix
 from orion_tpu.ops.gram import fused_gram as jax_fused_gram
 from orion_tpu_torch.algo.gp import kernels
-from orion_tpu_torch.ops.gram import fused_gram, fused_gram_reference
+from orion_tpu_torch.ops import gram
+from orion_tpu_torch.ops.gram import SMEM_BUDGET, _launch_plan, fused_gram, fused_gram_reference
 
 SHAPES = [
     (300, 70, 6),  # ragged on every axis
@@ -91,3 +97,81 @@ def test_cross_kernel_matrix_routes_by_work(monkeypatch):
     at = torch.rand(5209, 6)  # 8,001,024 >= 8e6
     kernels.cross_kernel_matrix("matern52", at, obs, ils, amp)
     assert calls == [(5209, 6)]
+
+
+def test_fused_gram_on_the_cpu_counts_no_launch():
+    before = fused_gram.launches
+    fused_gram(torch.rand(8, 3), torch.rand(5, 3), torch.ones(3), torch.tensor(1.0))
+    assert fused_gram.launches == before
+
+
+# The card's shapes (chip_smoke.CASES, the main path's first) and the card
+# tests' edge shapes.
+PLAN_SHAPES = sorted(set(CASES) | {(16384, 257, 6), (1, 1, 1), (64, 4, 6), (100000, 256, 6),
+                                   (4096, 256, 8), (8192, 512, 50), (513, 129, 130)})
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("m,n,d", PLAN_SHAPES)
+def test_launch_plan_stays_in_budget(m, n, d, aligned):
+    plan = _launch_plan(m, n, d, aligned)
+    assert 0 < plan.smem_bytes <= SMEM_BUDGET
+    assert plan.vec == (n % 4 == 0 and aligned)
+    if plan.resident:
+        # Scaled b with rows padded to whole tiles plus 4, its norms, and two a
+        # tiles for each of the block's 4 groups.
+        ldb = -(-n // 256) * 256 + 4
+        assert (plan.tile_rows, plan.tile_cols) == (16, 256)
+        assert plan.smem_bytes == 4 * (d * ldb + ldb + 4 * 2 * d * 16)
+    else:
+        # A 16-feature chunk of a 64-row a tile and a 64-column b tile, rows padded by 4.
+        assert (plan.tile_rows, plan.tile_cols) == (64, 64)
+        assert plan.smem_bytes == 4 * 2 * 16 * (64 + 4)
+
+
+def test_launch_plan_reaches_every_path():
+    """The card's shapes cover resident/chunked x float4/scalar."""
+    paths = {(p.resident, p.vec) for p in (_launch_plan(*s, True) for s in CASES)}
+    assert paths == {(True, True), (True, False), (False, True), (False, False)}
+
+
+@pytest.mark.parametrize("m,n,d,resident,vec", [
+    (16384, 256, 6, True, True),  # the main path: b is 6 KB
+    (16384, 1024, 6, True, True),  # b 24 KB, still resident
+    (16384, 257, 6, True, False),  # n odd: scalar stores
+    (64, 4, 6, True, True),  # a single tile
+    (1, 1, 1, True, False),
+    (8192, 512, 50, False, True),  # b 100 KB: chunked
+    (513, 129, 130, False, False),  # d = 130: b 67 KB
+    (300, 70, 6, True, False),
+])
+def test_launch_plan_paths(m, n, d, resident, vec):
+    plan = _launch_plan(m, n, d, True)
+    assert (plan.resident, plan.vec) == (resident, vec)
+
+
+@pytest.mark.parametrize("n,d_max", [(4, 31), (256, 31), (1024, 9), (2048, 4)])
+def test_launch_plan_edges_of_the_resident_rule(n, d_max):
+    """Resident exactly while 4 (d ldb + ldb + 128 d) bytes fit 48 KB, with
+    ldb = n rounded up to 256, plus 4."""
+    assert _launch_plan(100, n, d_max, True).resident
+    assert not _launch_plan(100, n, d_max + 1, True).resident
+
+
+def test_launch_plan_constants_match_the_kernel_source():
+    """The Python plan mirrors the layout constants of ``csrc/gram.cu``
+    (which refuses any other plan at launch)."""
+    path = os.path.join(os.path.dirname(gram.__file__), "csrc", "gram.cu")
+    with open(path) as handle:
+        source = handle.read()
+    const = {name: int(eval(expr, {}, {}))  # plain integer products only
+             for name, expr in re.findall(r"constexpr int (k\w+) = ([\d\s*]+);", source)}
+    tiles = {name: int(threads) for name, threads in
+             re.findall(r"using (\w+) = Tile<(\d+)>;", source)}
+    threads, micro = const["kThreads"], const["kMicroRows"]
+    for name, tile in (("Wide", gram._RESIDENT_TILE), ("Square", gram._CHUNKED_TILE)):
+        assert (threads // tiles[name] * micro, 4 * tiles[name]) == tile
+    assert const["kGroups"] == gram._GROUPS
+    assert const["kChunk"] == gram._CHUNK
+    assert const["kRowPad"] == gram._ROW_PAD
+    assert const["kSmemBudget"] == SMEM_BUDGET
