@@ -26,7 +26,17 @@ non-zero; nothing is caught and passed over):
    round's own ``suggest.*`` spans, and the top ops.
 6. ``regret``: the regret gate's scenario (``BENCH_REGRET_BASELINE.json``)
    through the port, seeds 0-4, judged by the port's copy of the gate.
-7. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+7. ``algorithms``: every other algorithm of the registry on the card, each
+   at its benchmark preset (``ALGO_RUNS``), in a plain loop of
+   ``suggest(batch)``, host evaluation and ``observe`` until the trial
+   budget or ``is_done``; one JSON line per run with its trials, rounds,
+   wall time, median suggest ms, suggestions/s and final simple regret
+   (beside the reference's median regret where ``BENCH_SEEDS.json`` has the
+   preset).  It checks that every row decodes inside the space, that no
+   round repeats a point, that ``asha_bo`` on Ackley-50D launched
+   ``fused_gram`` on its chunked path (8192 x 512 x 51), and that each
+   ``asha_bo`` seed ends below regret 20.0.
+8. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -52,10 +62,12 @@ PEAK_F32_FLOPS = 67e12
 
 #: fused_gram shapes (m, n, d): the main path's first, then one for each
 #: path of the kernel's launch plan and the edges: n odd (scalar stores), a
-#: single element, a single tile, and 100000 rows (many tiles per block).
+#: single element, a single tile, and 100000 rows (many tiles per block);
+#: last the asha_bo path's EI cross-gram (chunked).
+ASHA_BO_SHAPE = (8192, 512, 51)
 CASES = [(16384, 256, 6), (16384, 1024, 6), (4096, 256, 8), (8192, 512, 50),
          (300, 70, 6), (513, 129, 130), (16384, 257, 6), (1, 1, 1), (64, 4, 6),
-         (100000, 256, 6)]
+         (100000, 256, 6), ASHA_BO_SHAPE]
 KINDS = ("matern52", "rbf")
 
 Q = 1024
@@ -272,25 +284,22 @@ def phase_main_path(device, q=Q, rounds=ROUNDS, **overrides):
     return algo, launches
 
 
-def phase_profile(algo, q=Q):
-    """One more main-path round under ``torch.profiler``: kernels launched,
+def profile_round(round_fn, device):
+    """One call of ``round_fn`` under ``torch.profiler``: kernels launched,
     the device's busy time (the union of its kernel intervals) against the
-    round's wall time, each ``suggest.*`` stage's host and device ms (the
-    ``record_function`` spans of ``TPUBO._suggest_cube`` and
+    call's wall time, each ``suggest.*`` stage's host and device ms (the
+    ``record_function`` spans of the algorithms' suggest paths and
     ``_suggest_step``; a kernel counts for the span it starts in), and the
     ops that take the most device and host time.  ``idle_share`` is None
     when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.default_rng(1)
-    xn = rng.uniform(size=(16, 6)).astype(np.float32)
-    _observe(algo, xn, _hartmann6(xn))
-    _sync(algo.device)
+    _sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        algo.suggest_batch(q)
-        _sync(algo.device)
+        round_fn()
+        _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     # Device-side copies of the spans cover the gaps between their kernels:
@@ -325,12 +334,19 @@ def phase_profile(algo, q=Q):
         rows = sorted(averages, key=lambda e: getattr(e, attr), reverse=True)[:12]
         return [[e.key, e.count, getattr(e, attr) / 1e3] for e in rows]
 
-    emit("profile", q=q, wall_ms=wall_ms, device_events=len(kernels),
-         device_busy_ms=busy_us / 1e3,
-         idle_share=(1.0 - busy_us / 1e3 / wall_ms) if kernels else None,
-         stage_host_device_ms=stages,
-         top_self_device_ms=top("self_device_time_total"),
-         top_self_cpu_ms=top("self_cpu_time_total"))
+    return dict(wall_ms=wall_ms, device_events=len(kernels), device_busy_ms=busy_us / 1e3,
+                idle_share=(1.0 - busy_us / 1e3 / wall_ms) if kernels else None,
+                stage_host_device_ms=stages,
+                top_self_device_ms=top("self_device_time_total"),
+                top_self_cpu_ms=top("self_cpu_time_total"))
+
+
+def phase_profile(algo, q=Q):
+    """One more main-path round under the profiler (:func:`profile_round`)."""
+    rng = np.random.default_rng(1)
+    xn = rng.uniform(size=(16, 6)).astype(np.float32)
+    _observe(algo, xn, _hartmann6(xn))
+    emit("profile", q=q, **profile_round(lambda: algo.suggest_batch(q), algo.device))
 
 
 def regret_curve(seed, device, budget=192, q=16, n_init=16, algo_kwargs=None):
@@ -372,6 +388,132 @@ def phase_regret(device):
         raise AssertionError("regret gate failed against BENCH_REGRET_BASELINE.json")
 
 
+def _uniform_priors(n_dims):
+    return {f"x{i:02d}": "uniform(0, 1)" for i in range(n_dims)}
+
+
+ACKLEY50 = {**_uniform_priors(50), "budget": "fidelity(1, 256, 4)"}
+ASHA_BO = {"n_init": 128, "n_candidates": 8192, "fit_steps": 30, "refit_steps": 10,
+           "local_frac": 0.8, "trust_region": True, "y_transform": "copula",
+           "tr_perturb_dims": 12, "num_brackets": 3}
+
+#: The ``algorithms`` phase: (run, priors, function, algorithm config,
+#: trials, batch, seeds).  The configs are the reference's benchmark
+#: presets (``orion_tpu/benchmarks/runner.py``) where it has one; a run
+#: named like a preset reads that preset's reference regret from
+#: ``BENCH_SEEDS.json``.
+ALGO_RUNS = [
+    ("random-branin", _uniform_priors(2), "branin", {"random": {}}, 200, 50, (0,)),
+    ("grid-branin", _uniform_priors(2), "branin", {"grid_search": {"n_values": 14}}, 200, 50,
+     (0,)),
+    ("tpe-hartmann6", _uniform_priors(6), "hartmann6", {"tpe": {}}, 192, 16, (0,)),
+    ("cmaes-rosenbrock20", _uniform_priors(20), "rosenbrock20", {"cmaes": {"popsize": 16}},
+     1024, 16, (0,)),
+    ("de-rosenbrock20", _uniform_priors(20), "rosenbrock20",
+     {"de": {"popsize": 32, "mutation": "best1"}}, 1024, 32, (0,)),
+    ("asha-ackley50", ACKLEY50, "ackley50", {"asha": {"num_brackets": 3}}, 4096, 512, (0,)),
+    ("hyperband-ackley50", ACKLEY50, "ackley50", {"hyperband": {}}, 4096, 512, (0,)),
+    ("bohb-ackley50", ACKLEY50, "ackley50", {"bohb": {"n_candidates": 8192, "min_points": 64}},
+     4096, 512, (0,)),
+    ("asha_bo-ackley50", ACKLEY50, "ackley50", {"asha_bo": ASHA_BO}, 4096, 512, (0, 1)),
+]
+#: Each asha_bo-ackley50 seed must end below this regret: plain ASHA sits at
+#: 20.35-20.70 on this preset, the reference asha_bo's worst of 15 seeds at
+#: 18.93 (``BENCH_SEEDS.json``).
+ASHA_BO_REGRET_LIMIT = 20.0
+
+
+def _reference_regret(preset):
+    """The reference's median regret for ``preset``: its latest row in
+    ``BENCH_SEEDS.json`` (one JSON object per line), or None."""
+    row = None
+    with open(os.path.join(ROOT, "BENCH_SEEDS.json")) as handle:
+        for line in handle:
+            entry = json.loads(line)
+            if entry.get("preset") == preset:
+                row = entry
+    if row is None:
+        return None
+    return {"regret_median": row["regret_median"], "seeds": row["seeds"],
+            "sweep": row["sweep"]}
+
+
+def run_algorithm(device, priors, fn_name, config, max_trials, batch, seed):
+    """One run through the public API: ``suggest(batch)``, evaluate on the
+    host, ``observe``, until ``max_trials`` or ``is_done``.  Checks every
+    row against the space and each round for repeated points."""
+    from orion_tpu_torch.algo.base import create_algo
+    from orion_tpu_torch.benchmarks.functions import BENCHMARKS
+    from orion_tpu_torch.space.dsl import build_space
+
+    spec = BENCHMARKS[fn_name]
+    space = build_space(priors)
+    fid = space.fidelity
+    algo = create_algo(space, config, seed=seed, device=device)
+    n_done, best, suggest_ms = 0, float("inf"), []
+    t0 = time.perf_counter()
+    while n_done < max_trials and not algo.is_done:
+        t1 = time.perf_counter()
+        params = algo.suggest(min(batch, max_trials - n_done))
+        _sync(device)
+        suggest_ms.append((time.perf_counter() - t1) * 1e3)
+        if params is None:
+            break
+        points = [dict(p) for p in params]
+        bad = [p for p in points if not space.contains_point(p)]
+        if bad:
+            raise AssertionError(f"{config}: {len(bad)} rows outside the space, e.g. {bad[0]}")
+        keys = [tuple(v for k, v in sorted(p.items()) if fid is None or k != fid.name)
+                for p in points]
+        if len(set(keys)) != len(keys):
+            raise AssertionError(f"{config}: a round repeats a point")
+        cube = space.params_to_cube(params)
+        values = spec["fn"](torch.from_numpy(cube)).numpy()
+        if not np.isfinite(values).all():
+            raise AssertionError(f"{config}: non-finite objective")
+        algo.observe(params, [{"objective": float(v)} for v in values])
+        best = min(best, float(values.min()))
+        n_done += len(points)
+    wall = time.perf_counter() - t0
+    return algo, {"trials": n_done, "rounds": len(suggest_ms), "wall_s": wall,
+                  "median_suggest_ms": statistics.median(suggest_ms),
+                  "suggestions_per_s": n_done / wall, "regret": best - spec["optimum"],
+                  "is_done": bool(algo.is_done)}
+
+
+def phase_algorithms(device, runs=ALGO_RUNS):
+    """Every run of ``runs``; returns ``fused_gram``'s launches over the
+    asha_bo runs (zeroed just before each, read just after).  After the
+    first asha_bo run, one more model round of 512 fresh points runs under
+    the profiler (:func:`profile_round`)."""
+    from orion_tpu_torch.ops import gram
+
+    plan = gram._launch_plan(*ASHA_BO_SHAPE, True)
+    if plan.resident:
+        raise AssertionError(f"{ASHA_BO_SHAPE} is expected on the chunked path: {plan}")
+    asha_bo_launches = 0
+    for name, priors, fn_name, config, max_trials, batch, seeds in runs:
+        reference = _reference_regret(name)
+        for seed in seeds:
+            gram.fused_gram.launches = 0
+            algo, out = run_algorithm(device, priors, fn_name, config, max_trials, batch,
+                                      seed)
+            launches = gram.fused_gram.launches
+            emit("algorithms", run=name, seed=seed, config=config, batch=batch,
+                 **out, fused_gram_launches=launches, reference=reference)
+            if "asha_bo" in config:
+                asha_bo_launches += launches
+                if launches == 0:
+                    raise AssertionError(f"{name} seed {seed}: fused_gram never launched")
+                if not out["regret"] < ASHA_BO_REGRET_LIMIT:
+                    raise AssertionError(f"{name} seed {seed}: regret {out['regret']} "
+                                         f">= {ASHA_BO_REGRET_LIMIT}")
+                if seed == seeds[0]:
+                    emit("profile", run=name, q=batch,
+                         **profile_round(lambda: algo._sample_new(batch), device))
+    return asha_bo_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -393,16 +535,21 @@ def main():
     algo, launches = run("main_path", phase_main_path, device)
     run("profile", phase_profile, algo)
     run("regret", phase_regret, device)
+    asha_bo_launches = run("algorithms", phase_algorithms, device)
     emit("seconds", **seconds)
 
-    main_case = next(c for c in cases if (c["m"], c["n"], c["d"]) == CASES[0]
-                     and c["kind"] == "matern52")
+    def case(shape):
+        return next(c for c in cases if (c["m"], c["n"], c["d"]) == shape
+                    and c["kind"] == "matern52")
+
+    main_case, asha_bo_case = case(CASES[0]), case(ASHA_BO_SHAPE)
     kernels = [{
         "name": "fused_gram",
         "route": "cuda",
         "source": "orion_tpu_torch/ops/csrc/gram.cu",
         "replaces": "orion_tpu/ops/gram.py:68",
-        "launches": launches["fused_gram"],
+        "launches": launches["fused_gram"] + asha_bo_launches,
+        "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],
@@ -413,6 +560,9 @@ def main():
         "fill_ms": main_case["fill_ms"],
         "library_ms": None,
         "shape": list(CASES[0]),
+        "asha_bo_case": {k: asha_bo_case[k] for k in ("m", "n", "d", "max_abs_err", "ms",
+                                                       "plain_ms", "bound_ms", "bound_by",
+                                                       "bound_share")},
         "cases": cases,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

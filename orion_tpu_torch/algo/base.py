@@ -292,9 +292,20 @@ class BaseAlgorithm:
         return {name: cfg}
 
 
-#: Modules of the port that register algorithms (the reference's other
-#: algorithms are not ported yet).
-_BUILTIN_MODULES = ("tpu_bo",)
+#: Modules of the port that register algorithms: every name of the
+#: reference's registry.
+_BUILTIN_MODULES = (
+    "random_search",
+    "asha",
+    "asha_bo",
+    "bohb",
+    "cmaes",
+    "de",
+    "hyperband",
+    "grid_search",
+    "tpe",
+    "tpu_bo",
+)
 
 
 def _import_builtins():
@@ -304,15 +315,16 @@ def _import_builtins():
         importlib.import_module(f"orion_tpu_torch.algo.{mod}")
 
 
-def create_algo(space, config, seed=None, device=None):
+def create_algo(space, config=None, seed=None, device=None):
     """Instantiate an algorithm from config.
 
-    ``config`` is either a name string (``"tpu_bo"``) or a one-key dict
-    ``{"tpu_bo": {...kwargs}}``.  ``device=None`` means ``cuda``, and raises
+    ``config`` is either a name string (``"random"``, the default) or a
+    one-key dict ``{"tpu_bo": {...kwargs}}``.  ``device=None`` means ``cuda``, and raises
     where no card is present; pass ``device="cpu"`` to run on the CPU.
     Unknown names raise with the available choices listed.
     """
     _import_builtins()
+    config = config or "random"
     if isinstance(config, str):
         name, kwargs = config, {}
     elif isinstance(config, dict):

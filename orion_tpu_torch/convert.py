@@ -1,9 +1,9 @@
 """Carry optimizer state from ``orion_tpu`` into the port.
 
 Nothing here imports ``orion_tpu`` or JAX: the functions read any object
-whose leaves ``numpy.asarray`` can convert (a JAX ``GPState``, a
-``TPUBO.state_dict()``), so a checkpoint of the reference can be restored
-on the card.
+whose leaves ``numpy.asarray`` can convert (a JAX ``GPState``, an
+algorithm's ``state_dict()``), so a checkpoint of the reference can be
+restored on the card.
 """
 
 import numpy as np
@@ -46,24 +46,38 @@ def seed_from_rng_key(rng_key):
     return (hi << 32) | lo
 
 
+def _plain(value):
+    """``value`` with its arrays as (nested) lists and numpy scalars as
+    Python numbers, containers copied."""
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_plain(v) for v in value)
+    if hasattr(value, "tolist"):
+        return value.tolist()
+    return value
+
+
 def algo_state_from_jax(state):
-    """``orion_tpu`` ``TPUBO.state_dict()`` -> a state for the port's
-    ``TPUBO.set_state``: the observations (``x``, ``y``), the trust region
-    (``tr``, ``tr_center``), the GP warm start (``gp_hypers``) and
-    ``n_observed`` carry over as they are.
+    """An ``orion_tpu`` algorithm's ``state_dict()`` -> a state for the
+    port's ``set_state`` of the same algorithm.
+
+    Every field but the key carries over as it is, with arrays as lists:
+    the observations of ``tpu_bo`` (``x``, ``y``, ``tr``, ``tr_center``,
+    ``gp_hypers``) and ``tpe`` (``x``, ``y``); ``cmaes``'s distribution
+    (``cma``: m, sigma, C, pc, ps, gen) and generation buffer; ``de``'s
+    ``pop``/``fit``/``n_filled``; the rungs of ``asha``/``hyperband``
+    (``brackets``, ``bracket_of``) and, on top of them, ``bohb``'s
+    ``tiers`` and ``asha_bo``'s ``mf_x``/``mf_s``/``mf_y``, ``sigma``,
+    ``best_seen`` and ``tr``; ``grid_search``'s ``cursor``; and
+    ``n_observed``.
 
     The threefry ``rng_key`` cannot seed a ``torch.Generator``
     equivalently: the port reseeds from a seed derived from the key's two
     words (``seed_from_rng_key``), so the restored instance's random stream
-    differs from the reference's.  Given the same draws, its suggest step is
-    the reference's."""
-    out = {
-        "seed": seed_from_rng_key(state["rng_key"]),
-        "n_observed": int(state["n_observed"]),
-        "x": [list(map(float, row)) for row in state["x"]],
-        "y": [float(v) for v in state["y"]],
-    }
-    for key in ("tr", "tr_center", "gp_hypers"):
-        if key in state:
-            out[key] = state[key]
+    differs from the reference's.  Given the same draws, its next device
+    step is the reference's."""
+    out = {k: _plain(v) for k, v in state.items() if k != "rng_key"}
+    out["seed"] = seed_from_rng_key(state["rng_key"])
+    out["n_observed"] = int(state["n_observed"])
     return out

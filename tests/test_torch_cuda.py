@@ -126,3 +126,39 @@ def test_fused_gram_rejects_what_the_kernel_does_not_take(cuda):
                    torch.tensor(1.0, device=cuda).double())
     with pytest.raises(ValueError, match="devices"):
         fused_gram(x, x.cpu(), torch.ones(3, device=cuda), torch.tensor(1.0, device=cuda))
+
+
+@pytest.mark.cuda
+def test_asha_bo_round_launches_fused_gram_on_the_chunked_path(cuda, monkeypatch):
+    """One model round of ``asha_bo`` at the ``asha_bo-ackley50`` preset
+    (Ackley-50D plus the fidelity column, 8192 candidates, 512 observed)
+    runs its 8192 x 512 x 51 EI cross-gram in the kernel's chunked path,
+    and never in the plain version."""
+    import numpy as np
+
+    from orion_tpu_torch.algo.base import create_algo
+    from orion_tpu_torch.benchmarks.functions import ackley
+    from orion_tpu_torch.space.dsl import build_space
+
+    assert not gram._launch_plan(8192, 512, 51, True).resident
+    priors = {f"x{i:02d}": "uniform(0, 1)" for i in range(50)}
+    priors["budget"] = "fidelity(1, 256, 4)"
+    config = {"asha_bo": {"n_init": 128, "n_candidates": 8192, "fit_steps": 30,
+                          "refit_steps": 10, "local_frac": 0.8, "trust_region": True,
+                          "y_transform": "copula", "tr_perturb_dims": 12, "num_brackets": 3}}
+    space = build_space(priors)
+    algo = create_algo(space, config, seed=0, device=cuda)
+    params = algo.suggest(512)  # random: fewer than n_init observed
+    cube = space.params_to_cube(params)
+    algo.observe(params, [{"objective": float(v)} for v in ackley(torch.from_numpy(cube))])
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(gram, "fused_gram_reference", plain)
+    before = gram.fused_gram.launches
+    params = algo.suggest(512)
+    assert gram.fused_gram.launches > before
+    assert algo._hist.fit_view()[0].shape == (512, 51)
+    cube = space.params_to_cube(params)
+    assert cube.shape == (512, 50) and np.isfinite(cube).all()

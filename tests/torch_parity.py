@@ -1,18 +1,26 @@
 """Shared helpers of the ``tests/test_torch_*.py`` parity tests.
 
-Torch cannot reproduce JAX's threefry streams, so the port's suggest step
-is a function of its random draws.  :func:`jax_suggest_draws` replays the
-exact key schedule of ``orion_tpu.algo.tpu_bo._suggest_step`` through the
-same ``jax.random`` calls and hands the numbers to the port as
-:class:`~orion_tpu_torch.algo.tpu_bo.SuggestDraws`.
+Torch cannot reproduce JAX's threefry streams, so the port's device steps
+are functions of their random draws.  The ``jax_*`` helpers replay a
+reference function's key schedule through the same ``jax.random`` calls and
+hand the numbers to the port: :func:`jax_suggest_draws` for
+``tpu_bo._suggest_step`` (:class:`~orion_tpu_torch.algo.tpu_bo.SuggestDraws`),
+:func:`jax_tpe_draws` for ``tpe._tpe_suggest``, :func:`jax_de_draws` for
+``de._de_propose``, :func:`jax_cma_z` for ``cmaes._cma_sample`` and
+:func:`jax_asha_uniforms` for ASHA's bracket draw.
 """
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from orion_tpu.algo.tpe import _rank_log_weights as jax_rank_log_weights
+from orion_tpu_torch.algo.de import DEDraws
 from orion_tpu_torch.algo.gp.acquisition import RFFDraws
+from orion_tpu_torch.algo.tpe import TPEDraws
 from orion_tpu_torch.algo.tpu_bo import SuggestDraws, _candidate_split, _n_polish
 
 
@@ -72,6 +80,50 @@ def jax_suggest_draws(key, *, q, n_candidates, d_free, d, acq, local_frac, trust
     elif acq in ("marginal_thompson", "joint_thompson"):
         fields["acq"] = to_torch(jax.random.normal(k_acq, (q, n_candidates)))
     return SuggestDraws(**fields)
+
+
+@partial(jax.jit, static_argnums=(1, 2, 3))
+def _tpe_draws(key, n_good, m, d):
+    k_pick, k_noise, k_mix = jax.random.split(key, 3)
+    idx = jax.random.categorical(k_pick, jax_rank_log_weights(n_good), shape=(m, d))
+    return idx, jax.random.normal(k_noise, (m, d)), jax.random.uniform(k_mix, (m, d))
+
+
+def jax_tpe_draws(key, *, n_good, n_candidates, num, d):
+    """The draws of ``orion_tpu``'s ``_tpe_suggest(key, good, ...)`` with
+    ``n_good`` good points: ``split(key, 3)`` into the pick (a categorical
+    over the rank log-weights, computed under jit as the reference does),
+    noise and uniform keys; the pool is ``max(n_candidates, num)``."""
+    m = max(n_candidates, num)
+    idx, noise, uniform = _tpe_draws(key, n_good, m, d)
+    return TPEDraws(to_torch(idx), to_torch(noise), to_torch(uniform))
+
+
+def jax_de_draws(key, *, P, num, d, f_lo, f_hi, cr):
+    """The draws of ``orion_tpu``'s ``_de_propose(key, pop, ...)``:
+    ``split(key, 7)`` into the target offset, r1, r2, r3, F, the
+    crossover mask and the forced coordinate."""
+    k0, k1, k2, k3, k4, k5, k6 = jax.random.split(key, 7)
+    return DEDraws(
+        offset=to_torch(jax.random.randint(k0, (), 0, P)),
+        r1=to_torch(jax.random.randint(k1, (num,), 0, P - 1)),
+        r2=to_torch(jax.random.randint(k2, (num,), 0, P - 1)),
+        r3=to_torch(jax.random.randint(k3, (num,), 0, P - 1)),
+        F=to_torch(jax.random.uniform(k4, (num, 1), minval=f_lo, maxval=f_hi)),
+        cross=to_torch(jax.random.bernoulli(k5, cr, (num, d))),
+        jrand=to_torch(jax.random.randint(k6, (num,), 0, d)),
+    )
+
+
+def jax_cma_z(key, num, d):
+    """The normal draws of ``orion_tpu``'s ``_cma_sample(key, state, num)``."""
+    return to_torch(jax.random.normal(key, (num, d)))
+
+
+def jax_asha_uniforms(bracket_key, num):
+    """The bracket uniforms of ``orion_tpu``'s
+    ``ASHA._assign_new_points(u, bracket_key)``."""
+    return np.asarray(jax.random.uniform(bracket_key, (num,)))
 
 
 def padded_history(seed, n, n_pad, d, fn=None):
