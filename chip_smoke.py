@@ -36,15 +36,32 @@ non-zero; nothing is caught and passed over):
    round repeats a point, that ``asha_bo`` on Ackley-50D launched
    ``fused_gram`` on its chunked path (8192 x 512 x 51), and that each
    ``asha_bo`` seed ends below regret 20.0.
-8. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+8. ``hunt``: the library entry point, ``optimize()``, through the producer
+   and storage at the main path's full width -- Hartmann6, ``tpu_bo`` as in
+   4., q=1024, 5 rounds (one random, four GP) -- once on ``pickled`` storage
+   and once on ``memory``, each a JSON line with the per-round median ms of
+   the producer's suggest, register and observe, of its sync with storage,
+   reserve, ``batch_eval`` and completion, the round, suggestions/s and the
+   final regret, beside the plain loop's round of 4.; ``fused_gram`` zeroed
+   before each run and launched at least once per GP round (at 16384 x 256
+   x 6).  Then two worker processes run ``ExperimentClient`` loops at
+   q=1024 on one ``pickled`` file, 6144 trials, each keeping one batch in
+   evaluation while it asks for the next, so that from the third round on
+   each producer lies about the batches in flight: no trial reserved
+   twice, each completed once, ids unique.  Last the regret gate's
+   scenario through ``optimize()``, judged by the port's gate.
+9. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
 """
 
 import bisect
+import collections
 import json
+import multiprocessing
 import os
+import queue
 import statistics
 import subprocess
 import sys
@@ -281,7 +298,7 @@ def phase_main_path(device, q=Q, rounds=ROUNDS, **overrides):
          suggestions_per_s=q / (median / 1e3), warmup_ms=warmup_ms, launches=launches,
          unique_rows=int(len({tuple(r) for r in cube})),
          health={f: health[f] for f in DEVICE_HEALTH_FIELDS})
-    return algo, launches
+    return algo, launches, median
 
 
 def profile_round(round_fn, device):
@@ -514,6 +531,304 @@ def phase_algorithms(device, runs=ALGO_RUNS):
     return asha_bo_launches
 
 
+#: The ``hunt`` phase: the main path's algorithm through ``optimize()``.
+HUNT_ALGO = {"tpu_bo": {"n_init": 16, "n_candidates": 16384, "fit_steps": 40,
+                        "local_frac": 0.3}}
+HUNT_ROUNDS = 5
+HUNT_PRIORS = {f"x{i}": "uniform(0, 1)" for i in range(6)}
+MAIN_SHAPE = (16384, 256, 6)
+WORKERS = 2
+WORKER_ROUNDS = 3  # 2 workers x 3 rounds x 1024 = 6144 trials
+
+
+def _median(values):
+    return statistics.median(values) if values else None
+
+
+def _timed(fn, samples):
+    """``fn`` recording ``(start, wall ms)`` of each call into ``samples``."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            samples.append((t0, (time.perf_counter() - t0) * 1e3))
+    return wrapper
+
+
+def _per_round(samples, edges):
+    """The ms of ``samples`` summed per round, round ``k`` being the calls
+    that start between ``edges[k]`` and ``edges[k + 1]``."""
+    out = [0.0] * (len(edges) - 1)
+    for start, ms in samples:
+        k = bisect.bisect_right(edges, start) - 1
+        if 0 <= k < len(out):
+            out[k] += ms
+    return out
+
+
+class _LaunchShapes:
+    """Counts the (m, n, d) of every ``fused_gram`` launch plan while
+    active (the plan is made just before each launch)."""
+
+    def __enter__(self):
+        from orion_tpu_torch.ops import gram
+
+        self.shapes = collections.Counter()
+        self._plan = gram._launch_plan
+
+        def plan(m, n, d, aligned):
+            self.shapes[(m, n, d)] += 1
+            return self._plan(m, n, d, aligned)
+
+        gram._launch_plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        from orion_tpu_torch.ops import gram
+
+        gram._launch_plan = self._plan
+
+
+def run_hunt(device, storage, q=Q, rounds=HUNT_ROUNDS, algo=HUNT_ALGO, name="hunt"):
+    """``optimize(tpu_bo)`` on ``storage``: ``rounds`` rounds of ``q`` on
+    Hartmann6, ``batch_eval`` on the card.  Returns its timings, launches
+    and checks as a dict."""
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.client.experiment import optimize
+    from orion_tpu_torch.ops import gram
+
+    samples = {"sync": [], "reserve": [], "batch_eval": [], "complete": []}
+    storage.fetch_update_view = _timed(storage.fetch_update_view, samples["sync"])
+    storage.reserve_trials = _timed(storage.reserve_trials, samples["reserve"])
+    storage.update_completed_trials = _timed(storage.update_completed_trials,
+                                             samples["complete"])
+    ends, best = [], []
+
+    def batch_eval(x):
+        t0 = time.perf_counter()
+        values = hartmann6(x)
+        best.append(float(values.min()))  # one copy; also the sync
+        samples["batch_eval"].append((t0, (time.perf_counter() - t0) * 1e3))
+        if x.device.type != device.type or tuple(x.shape) != (q, 6):
+            raise AssertionError(f"batch_eval got {x.device} {tuple(x.shape)}")
+        ends.append(time.perf_counter())
+        return values
+
+    gram.fused_gram.launches = 0
+    with _LaunchShapes() as launch_shapes:
+        t0 = time.perf_counter()
+        stats = optimize(None, HUNT_PRIORS, max_trials=rounds * q, batch_size=q,
+                         algorithm=algo, seed=0, storage=storage, name=name,
+                         batch_eval=batch_eval)
+        wall_s = time.perf_counter() - t0
+    launches = gram.fused_gram.launches
+    exp_id = storage.fetch_experiments({"name": name})[0]["_id"]
+    trials = storage.fetch_trials(uid=exp_id)
+    values = [t.objective.value for t in trials if t.objective is not None]
+    if not (stats["trials_completed"] == len(trials) == len(values) == rounds * q):
+        raise AssertionError(f"{name}: {stats['trials_completed']} completed of "
+                             f"{len(trials)} trials, expected {rounds * q}")
+    if len({t.id for t in trials}) != len(trials) or not np.isfinite(values).all():
+        raise AssertionError(f"{name}: repeated ids or non-finite objectives")
+    if any(not 0.0 <= v <= 1.0 for t in trials for v in t.params.values()):
+        raise AssertionError(f"{name}: a point outside the space")
+    gp_rounds = rounds - 1  # round 1 is random: fewer than n_init observed
+    if launches < gp_rounds or launch_shapes.shapes[MAIN_SHAPE] < gp_rounds:
+        raise AssertionError(f"{name}: fused_gram launched {launches} times "
+                             f"({dict(launch_shapes.shapes)}) in {gp_rounds} GP rounds")
+    timings = collections.defaultdict(list)
+    for doc in storage.fetch_timings(exp_id):
+        timings[doc["op"]].append(doc["duration"] * 1e3)
+    # Round k runs from the end of batch_eval k - 1 (the start of the run
+    # for the first) to the end of batch_eval k: completion of the previous
+    # round, the producer's sync with storage (``fetch_update_view``), its
+    # observe, naive copy, suggest and register, reserve, and batch_eval.
+    edges = [t0] + ends
+    round_ms = list(np.diff(edges) * 1e3)
+    # GP rounds only: the producer's suggest and register of rounds 2-5, its
+    # observe of rounds 1-4's results (made at the start of rounds 2-5).
+    gp = {"suggest": timings["suggest"][1:], "register": timings["register"][1:],
+          "observe": timings["observe"]}
+    gp.update({op: _per_round(samples[op], edges)[1:] for op in samples})
+    return {
+        "trials": len(trials), "gp_rounds": gp_rounds, "wall_s": wall_s,
+        "round_ms": round_ms, "median_gp_round_ms": _median(round_ms[1:]),
+        "suggestions_per_s": q / (_median(round_ms[1:]) / 1e3),
+        "median_ms": {op: _median(v) for op, v in gp.items()},
+        "samples_ms": gp, "regret": min(best) - GLOBAL_MIN,
+        "fused_gram_launches": launches,
+        "launch_shapes": {"x".join(map(str, k)): v for k, v in launch_shapes.shapes.items()},
+    }
+
+
+def _hunt_worker(path, seed, rounds, q, barrier, results, device=None, algo=HUNT_ALGO):
+    """One worker process: an ``ExperimentClient`` loop at ``q`` on the
+    ``pickled`` file at ``path`` that keeps one batch in evaluation while
+    it asks for the next, completing a batch only once every worker has
+    reserved its next one (``barrier``).  From its third round on, each
+    producer so fits the GP to the completed batches and lies about the
+    batches in flight, its own and the other worker's."""
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.client.experiment import ExperimentClient
+    from orion_tpu_torch.core.experiment import build_experiment
+    from orion_tpu_torch.ops import gram
+    from orion_tpu_torch.storage.base import create_storage
+
+    import orion_tpu_torch.device  # noqa: F401  (precision switches)
+
+    storage = create_storage({"type": "pickled", "path": path})
+    exp = build_experiment(storage, "workers", priors=HUNT_PRIORS,
+                           max_trials=WORKERS * rounds * q, algorithms=algo,
+                           pool_size=q).instantiate(seed=seed, device=device)
+    client = ExperimentClient(exp)
+    space = exp.space
+    reserved, completed, suggest_ms, held = [], [], [], None
+
+    def complete(trials):
+        cube = torch.as_tensor(space.params_to_cube([t.params for t in trials]),
+                               device=exp.algorithm.device)
+        client.observe_all(trials, hartmann6(cube).cpu().numpy().tolist())
+        completed.extend(t.id for t in trials)
+
+    gram.fused_gram.launches = 0
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        trials = client.suggest(q)
+        suggest_ms.append((time.perf_counter() - t0) * 1e3)
+        reserved.extend(t.id for t in trials)
+        barrier.wait(timeout=300)
+        if held is not None:
+            complete(held)
+        held = trials
+    complete(held)
+    results.put({"seed": seed, "reserved": reserved, "completed": completed,
+                 "suggest_ms": suggest_ms, "fused_gram_launches": gram.fused_gram.launches,
+                 "observed": exp.algorithm.n_observed})
+
+
+def run_workers(tmp_dir, q=Q, rounds=WORKER_ROUNDS, workers=WORKERS, device=None,
+                algo=HUNT_ALGO):
+    """``workers`` spawned processes on one ``pickled`` file (their
+    algorithms on ``device``, ``None`` meaning ``cuda``); checks that no
+    trial was reserved twice and each was completed once."""
+    from orion_tpu_torch.storage.base import create_storage
+
+    path = os.path.join(tmp_dir, "workers.pkl")
+    ctx = multiprocessing.get_context("spawn")
+    barrier, results = ctx.Barrier(workers), ctx.Queue()
+    procs = [ctx.Process(target=_hunt_worker,
+                         args=(path, seed, rounds, q, barrier, results, device, algo))
+             for seed in range(workers)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    out = []
+    try:
+        while len(out) < len(procs):
+            try:
+                out.append(results.get(timeout=5))
+            except queue.Empty:
+                failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if failed or time.perf_counter() - t0 > 600:
+                    raise AssertionError(f"workers failed or hung: exit codes {failed}")
+        for proc in procs:
+            proc.join(timeout=120)
+            if proc.exitcode != 0:
+                raise AssertionError(f"worker exited with {proc.exitcode}")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join()
+    wall_s = time.perf_counter() - t0
+    storage = create_storage({"type": "pickled", "path": path})
+    exp_id = storage.fetch_experiments({"name": "workers"})[0]["_id"]
+    trials = storage.fetch_trials(uid=exp_id)
+    reserved = [tid for r in out for tid in r["reserved"]]
+    completed = [tid for r in out for tid in r["completed"]]
+    total = workers * rounds * q
+    ids = [t.id for t in trials]
+    out = {"workers": workers, "q": q, "rounds_each": rounds, "trials": len(ids),
+           "lies": len(storage.fetch_lies(exp_id)), "wall_s": wall_s,
+           "fused_gram_launches": sum(r["fused_gram_launches"] for r in out),
+           "per_worker": [{k: r[k] for k in ("seed", "suggest_ms", "fused_gram_launches",
+                                             "observed")} for r in out],
+           "reserved": len(reserved), "reserved_distinct": len(set(reserved)),
+           "completed": len(completed), "completed_distinct": len(set(completed)),
+           "statuses": sorted({t.status for t in trials})}
+    emit("hunt", run="workers", storage="pickled", **out)
+    if not (len(reserved) == len(set(reserved)) == len(completed) == len(set(completed))
+            == len(ids) == len(set(ids)) == total and set(reserved) == set(ids)):
+        raise AssertionError(f"workers: {len(reserved)} reserved ({len(set(reserved))} "
+                             f"distinct), {len(completed)} completed, {len(ids)} trials "
+                             f"({len(set(ids))} ids), expected {total}")
+    if out["statuses"] != ["completed"]:
+        raise AssertionError(f"workers: statuses {out['statuses']}")
+    if out["lies"] == 0 or out["fused_gram_launches"] < workers:
+        raise AssertionError("workers: no lie registered or no GP round launched fused_gram")
+    return out
+
+
+def regret_curve_optimize(seed, budget, q, algo_kwargs):
+    """The regret gate's scenario through ``optimize()``: the incumbent's
+    regret after each round (the first round is the random initial design
+    of ``n_init`` points)."""
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.client.experiment import optimize
+
+    curve, best = [], float("inf")
+
+    def batch_eval(x):
+        nonlocal best
+        values = hartmann6(x)
+        best = min(best, float(values.min()))
+        curve.append(best - GLOBAL_MIN)
+        return values
+
+    optimize(None, HUNT_PRIORS, max_trials=budget, batch_size=q,
+             algorithm={"tpu_bo": algo_kwargs}, seed=seed, batch_eval=batch_eval)
+    return curve
+
+
+def phase_hunt(device, plain_round_ms):
+    """The library path through the producer and storage: both backends,
+    two workers, the regret gate through ``optimize()``.  Returns
+    ``fused_gram``'s launches over all of it (zeroed before each run, read
+    after it)."""
+    import tempfile
+
+    from orion_tpu_torch.benchmarks.regret_gate import evaluate_regret_gate, load_baseline
+    from orion_tpu_torch.ops import gram
+    from orion_tpu_torch.storage.base import create_storage
+
+    launches = 0
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for backend in ("pickled", "memory"):
+            storage = create_storage({"type": backend, "path": os.path.join(tmp, "hunt.pkl")})
+            out = run_hunt(device, storage)
+            launches += out["fused_gram_launches"]
+            emit("hunt", storage=backend, q=Q, plain_round_ms=plain_round_ms, **out)
+        launches += run_workers(tmp)["fused_gram_launches"]
+    path = os.path.join(ROOT, "BENCH_REGRET_BASELINE.json")
+    with open(path) as handle:
+        config = json.load(handle)["config"]
+    baseline = load_baseline(path)
+    gram.fused_gram.launches = 0
+    curves = [regret_curve_optimize(seed, config["budget"], config["q"],
+                                    dict(config["algo"]["tpu_bo"]))
+              for seed in range(len(baseline))]
+    launches += gram.fused_gram.launches
+    verdict = evaluate_regret_gate(curves, baseline)
+    emit("hunt", run="regret", final=[c[-1] for c in curves],
+         baseline_final=[c[-1] for c in baseline], gate=verdict,
+         fused_gram_launches=gram.fused_gram.launches)
+    if not verdict["pass"]:
+        raise AssertionError("regret gate through optimize() failed against "
+                             "BENCH_REGRET_BASELINE.json")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -532,10 +847,11 @@ def main():
     run("device", phase_device)
     run("build", phase_build)
     cases = run("kernel_checks", check_fused_gram, device)
-    algo, launches = run("main_path", phase_main_path, device)
+    algo, launches, plain_round_ms = run("main_path", phase_main_path, device)
     run("profile", phase_profile, algo)
     run("regret", phase_regret, device)
     asha_bo_launches = run("algorithms", phase_algorithms, device)
+    hunt_launches = run("hunt", phase_hunt, device, plain_round_ms)
     emit("seconds", **seconds)
 
     def case(shape):
@@ -548,8 +864,9 @@ def main():
         "route": "cuda",
         "source": "orion_tpu_torch/ops/csrc/gram.cu",
         "replaces": "orion_tpu/ops/gram.py:68",
-        "launches": launches["fused_gram"] + asha_bo_launches,
-        "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches},
+        "launches": launches["fused_gram"] + asha_bo_launches + hunt_launches,
+        "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
+                             "hunt": hunt_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -3,8 +3,11 @@
 Nothing here imports ``orion_tpu`` or JAX: the functions read any object
 whose leaves ``numpy.asarray`` can convert (a JAX ``GPState``, an
 algorithm's ``state_dict()``), so a checkpoint of the reference can be
-restored on the card.
+restored on the card; :func:`storage_from_jax` opens the reference's
+``pickled`` storage file, so its experiments resume in the port.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -81,3 +84,23 @@ def algo_state_from_jax(state):
     out["seed"] = seed_from_rng_key(state["rng_key"])
     out["n_observed"] = int(state["n_observed"])
     return out
+
+
+def storage_from_jax(path, retry=None):
+    """A :class:`~orion_tpu_torch.storage.base.DocumentStorage` over the
+    ``pickled`` file at ``path`` that ``orion_tpu`` wrote: the same
+    experiments and trial documents, ids included, so an experiment the
+    reference created resumes here (``build_experiment`` with its name).
+
+    The file is read without importing ``orion_tpu``
+    (``storage/backends.py::_DBUnpickler``, which refuses, and leaves
+    unchanged, a file holding any other ``orion_tpu`` class).  One way only: the port's
+    first write (opening it here already writes its indexes) stores the
+    port's class paths, and the reference cannot read the file after
+    that; copy the file first to keep a version the reference reads."""
+    from orion_tpu_torch.storage.backends import PickledDB
+    from orion_tpu_torch.storage.base import DocumentStorage
+
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no storage file at {path!r}")
+    return DocumentStorage(PickledDB(path), retry=retry)

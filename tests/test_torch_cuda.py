@@ -162,3 +162,75 @@ def test_asha_bo_round_launches_fused_gram_on_the_chunked_path(cuda, monkeypatch
     assert algo._hist.fit_view()[0].shape == (512, 51)
     cube = space.params_to_cube(params)
     assert cube.shape == (512, 50) and np.isfinite(cube).all()
+
+
+HUNT_ALGO = {"tpu_bo": {"n_init": 16, "n_candidates": 16384, "fit_steps": 40,
+                        "local_frac": 0.3}}
+
+
+@pytest.mark.cuda
+def test_optimize_gp_round_at_q1024_launches_fused_gram_at_the_main_shape(cuda, monkeypatch):
+    """``optimize(tpu_bo)`` at q=1024 on ``memory`` storage: round 1 is
+    random, round 2 a GP round whose EI ranking runs the 16384 x 256 x 6
+    cross-gram in the kernel (the trust region fits the 256 nearest of
+    1024 observed), never in the plain version; ``batch_eval`` gets the
+    rows as a float32 tensor on the card."""
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.client.experiment import optimize
+    from orion_tpu_torch.storage.base import create_storage
+
+    shapes, seen = [], []
+    plan = gram._launch_plan
+
+    def recording_plan(m, n, d, aligned):
+        shapes.append((m, n, d))
+        return plan(m, n, d, aligned)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card")
+
+    def batch_eval(x):
+        seen.append((x.device.type, x.dtype, tuple(x.shape)))
+        return hartmann6(x)
+
+    monkeypatch.setattr(gram, "_launch_plan", recording_plan)
+    monkeypatch.setattr(gram, "fused_gram_reference", plain)
+    before = gram.fused_gram.launches
+    stats = optimize(None, {f"x{i}": "uniform(0, 1)" for i in range(6)}, max_trials=2048,
+                     batch_size=1024, algorithm=HUNT_ALGO, seed=0, batch_eval=batch_eval,
+                     storage=create_storage({"type": "memory"}))
+    assert stats["trials_completed"] == 2048
+    assert gram.fused_gram.launches - before == len(shapes) >= 1
+    assert (16384, 256, 6) in shapes
+    assert seen == [("cuda", torch.float32, (1024, 6))] * 2
+
+
+@pytest.mark.cuda
+def test_naive_copy_generator_hand_off_on_cuda(cuda):
+    """With trials in flight, the producer's naive copy observes the lies
+    and suggests; the real algorithm's ``cuda`` generator takes the naive
+    copy's state (a copy, not the object) and its history holds no lie."""
+    from orion_tpu_torch.client.experiment import ExperimentClient
+    from orion_tpu_torch.core.experiment import build_experiment
+    from orion_tpu_torch.storage.base import create_storage
+
+    storage = create_storage({"type": "memory"})
+    exp = build_experiment(storage, "handoff", priors={"x0": "uniform(0, 1)",
+                                                       "x1": "uniform(0, 1)"},
+                           algorithms={"tpu_bo": {"n_init": 4, "n_candidates": 1024,
+                                                  "fit_steps": 5}})
+    client = ExperimentClient(exp.instantiate(seed=0))
+    first = client.suggest(8)
+    client.observe_all(first[:6], [float(t.params["x0"]) for t in first[:6]])
+    real = client.producer.algorithm
+    assert real.generator.device.type == "cuda"
+    before = real.generator.get_state().clone()
+    assert len(client.suggest(4)) == 4
+    naive = client.producer.naive_algorithm
+    after = real.generator.get_state()
+    assert not torch.equal(before, after)
+    assert torch.equal(after, naive.generator.get_state())
+    assert real.generator is not naive.generator
+    assert real._hist.count == 6 and naive._hist.count == 8
+    assert real._hist._x.data_ptr() != naive._hist._x.data_ptr()
+    assert float(real._hist.fit_view()[2].sum()) == 6.0

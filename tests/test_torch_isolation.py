@@ -71,3 +71,30 @@ def test_importing_every_port_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_opening_a_reference_pickled_db_loads_no_jax(tmp_path):
+    """A ``pickled`` file that ``orion_tpu`` wrote holds its classes; the
+    port opens it (``convert.storage_from_jax``) and resumes its experiment
+    in a fresh interpreter without loading ``orion_tpu`` or JAX."""
+    from test_torch_storage import write_reference_db
+
+    path = str(tmp_path / "ref.pkl")
+    experiments, trial_docs = write_reference_db(path)
+    code = (
+        "import sys\n"
+        "from orion_tpu_torch.convert import storage_from_jax\n"
+        "from orion_tpu_torch.core.experiment import build_experiment\n"
+        f"storage = storage_from_jax({path!r})\n"
+        "exp = build_experiment(storage, 'resume', priors=dict(storage.fetch_experiments({})"
+        "[0]['priors']))\n"
+        f"assert exp.id == {experiments[0]['_id']!r}\n"
+        f"assert len(exp.fetch_trials()) == {len(trial_docs)}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
