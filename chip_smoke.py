@@ -50,7 +50,20 @@ non-zero; nothing is caught and passed over):
    each producer lies about the batches in flight: no trial reserved
    twice, each completed once, ids unique.  Last the regret gate's
    scenario through ``optimize()``, judged by the port's gate.
-9. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+9. ``cli``: ``orion-tpu-torch hunt`` over a pure-Python Hartmann6 user
+   script (one subprocess a trial) with the main path's ``tpu_bo``.  First
+   one worker in this process on SQLite, ``--pool-size 1024``, 1280 trials
+   (a random round of 1024, then a GP round of which 256 run), the
+   kernel's launch shapes counted over the call (a launch at 16384 x 256
+   x 6), with each trial's subprocess, reservation, completion and status
+   reads timed.  Then ``--n-workers 8 --profile`` as a subprocess on a
+   fresh SQLite file, 3072 trials: no trial run twice (the script logs
+   each execution), lies registered, the kernel counted in the workers'
+   profiler traces, with each worker's device busy time and idle share.
+   Last the regret gate's scenario through the CLI on ``pickled``, the
+   five seeds at once, judged by the port's gate.  Every objective the
+   script reported must equal the port's Hartmann6 on the card.
+10. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -829,6 +842,379 @@ def phase_hunt(device, plain_round_ms):
     return launches
 
 
+#: The ``cli`` phase: the main path's algorithm through ``orion-tpu-torch
+#: hunt`` over a user script, one trial a subprocess.
+CLI_PRIORS = [f"-x{i}~uniform(0, 1)" for i in range(6)]
+CLI_ALGO = {"n_init": 16, "n_candidates": 16384, "fit_steps": 40, "local_frac": 0.3, "seed": 0}
+CLI_Q = 1024
+CLI_TRIALS = 1280  # one random round of 1024, then a GP round of which 256 are consumed
+CLI_WORKERS = 8
+CLI_WORKER_TRIALS = 3072
+#: The kernel's name in a profiler trace (``ops/csrc/gram.cu``).
+GRAM_KERNEL = "gram_kernel"
+
+#: The user script: executable, started as ``python -S`` (on the card's host
+#: the interpreter's ``site`` start-up costs most of a trial's process:
+#: ``interpreter_start_ms`` in the ``cli`` line) and importing only the
+#: client.
+USER_SCRIPT = r"""#!%s -S
+# Hartmann6 on [0, 1]^6 as the user script of `orion-tpu-torch hunt`, in pure
+# Python: a trial's process imports neither numpy nor torch.  Arguments are
+# `-x0 V ... -x5 V [--log PATH [--hold-after N --hold-seconds S]]`; `--log`
+# appends the trial's id to PATH, one line an execution; with `--hold-after`,
+# the first trial to start after N others writes its id to PATH.held and
+# runs S seconds longer.
+import math
+import os
+import sys
+import time
+
+from orion_tpu_torch.client import report_results
+
+ALPHA = %r
+A = %r
+P = %r
+
+args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+x = [float(args[f"-x{i}"]) for i in range(6)]
+y = -sum(ALPHA[j] * math.exp(-sum(A[j][k] * (x[k] - 1e-4 * P[j][k]) ** 2 for k in range(6)))
+         for j in range(4))
+if "--log" in args:
+    with open(args["--log"], "a") as handle:
+        handle.write(os.environ["ORION_TRIAL_ID"] + "\n")
+if "--hold-after" in args:
+    with open(args["--log"]) as handle:
+        started = sum(1 for _ in handle)
+    if started > int(args["--hold-after"]):
+        try:
+            held = os.open(args["--log"] + ".held", os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except FileExistsError:
+            held = None
+        if held is not None:
+            os.write(held, os.environ["ORION_TRIAL_ID"].encode())
+            os.close(held)
+            time.sleep(float(args["--hold-seconds"]))
+report_results([{"name": "objective", "type": "objective", "value": y}])
+"""
+
+
+def write_cli_files(tmp, algo=CLI_ALGO, name="cli"):
+    """The user script and a ``-c`` YAML holding ``algo`` as ``tpu_bo``'s
+    config; returns their paths."""
+    import yaml
+
+    from orion_tpu_torch.benchmarks import functions
+
+    script = os.path.join(tmp, "hartmann6.py")
+    if not os.path.exists(script):
+        with open(script, "w") as handle:
+            handle.write(USER_SCRIPT % (sys.executable, functions._H6_ALPHA, functions._H6_A,
+                                        functions._H6_P))
+        os.chmod(script, 0o755)
+    config = os.path.join(tmp, f"{name}.yaml")
+    with open(config, "w") as handle:
+        yaml.safe_dump({"algorithms": {"tpu_bo": dict(algo)}}, handle)
+    return script, config
+
+
+def _trial_rows(trials):
+    """(n, 6) float32 rows and (n,) objectives of completed trials."""
+    trials = [t for t in trials if t.status == "completed"]
+    rows = np.asarray([[t.params[f"/x{i}"] for i in range(6)] for t in trials], np.float32)
+    return trials, rows, np.asarray([t.objective.value for t in trials], np.float64)
+
+
+def check_cli_trials(name, trials, expected, device):
+    """At least ``expected`` completed trials, unique ids, every parameter
+    in [0, 1], and each objective the user script reported equal to the
+    port's Hartmann6 on the card at the trial's point (atol 1e-5: float64
+    in the script, float32 here)."""
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+
+    done, rows, values = _trial_rows(trials)
+    if len(done) < expected:
+        raise AssertionError(f"{name}: {len(done)} completed trials, expected {expected}")
+    if len({t.id for t in trials}) != len(trials):
+        raise AssertionError(f"{name}: repeated trial ids")
+    if not ((rows >= 0.0) & (rows <= 1.0)).all():
+        raise AssertionError(f"{name}: a point outside the space")
+    want = hartmann6(torch.from_numpy(rows).to(device)).cpu().numpy()
+    err = float(np.abs(want - values).max())
+    if not err <= 1e-5:
+        raise AssertionError(f"{name}: objectives differ from hartmann6 by {err}")
+    return done, values, err
+
+
+def _fetch_trials(storage, name):
+    [exp] = storage.fetch_experiments({"name": name})
+    return exp["_id"], storage.fetch_trials(uid=exp["_id"])
+
+
+def run_cli_hunt(tmp, device, q=CLI_Q, max_trials=CLI_TRIALS, algo=CLI_ALGO):
+    """``orion-tpu-torch hunt`` in this process, one worker, on SQLite:
+    ``max_trials`` trials of the user script at ``--pool-size q``, the
+    kernel's launch shapes counted over the whole call.  Each trial's
+    consumption (working dir, files, subprocess, results) and within it the
+    subprocess, its reservation and completion and the loop's status reads
+    are timed by wrapping their calls."""
+    from orion_tpu_torch import cli
+    from orion_tpu_torch.core.consumer import Consumer
+    from orion_tpu_torch.core.experiment import Experiment
+    from orion_tpu_torch.core.producer import Producer
+    from orion_tpu_torch.ops import gram
+    from orion_tpu_torch.storage.base import DocumentStorage, create_storage
+
+    script, config = write_cli_files(tmp, algo)
+    db = os.path.join(tmp, "cli.sqlite")
+    samples = {"consume": [], "trial_process": [], "reserve": [], "complete": [], "status": [],
+               "produce": []}
+    patches = [(Consumer, "consume", "consume"), (Consumer, "_execute_process", "trial_process"),
+               (DocumentStorage, "reserve_trial", "reserve"),
+               (DocumentStorage, "update_completed_trial", "complete"),
+               (Producer, "produce", "produce")]
+    saved = [(cls, attr, cls.__dict__[attr]) for cls, attr, _ in patches]
+    saved += [(Experiment, attr, Experiment.__dict__[attr]) for attr in ("is_done", "is_broken")]
+    for cls, attr, key in patches:
+        setattr(cls, attr, _timed(getattr(cls, attr), samples[key]))
+    for attr in ("is_done", "is_broken"):
+        setattr(Experiment, attr, property(_timed(Experiment.__dict__[attr].fget,
+                                                  samples["status"])))
+    gram.fused_gram.launches = 0
+    try:
+        with _LaunchShapes() as launch_shapes:
+            t0 = time.perf_counter()
+            rc = cli.main(["hunt", "-n", "cli", "-c", config, "--storage-path", db,
+                           "--pool-size", str(q), "--max-trials", str(max_trials),
+                           "--device", device.type, script, *CLI_PRIORS])
+            wall_s = time.perf_counter() - t0
+    finally:
+        for cls, attr, value in saved:
+            setattr(cls, attr, value)
+    launches = gram.fused_gram.launches
+    if rc != 0:
+        raise AssertionError(f"cli hunt: exit code {rc}")
+    storage = create_storage({"type": "sqlite", "path": db})
+    exp_id, trials = _fetch_trials(storage, "cli")
+    done, values, err = check_cli_trials("cli hunt", trials, max_trials, device)
+    if launches < 1 or launch_shapes.shapes[MAIN_SHAPE] < 1:
+        raise AssertionError(f"cli hunt: fused_gram launched {launches} times "
+                             f"({dict(launch_shapes.shapes)})")
+    suggest_ms = [doc["duration"] * 1e3 for doc in storage.fetch_timings(exp_id)
+                  if doc["op"] == "suggest"]
+    produce_ms = [ms for _, ms in samples["produce"]]
+    return {
+        "trials": len(trials), "completed": len(done), "wall_s": wall_s,
+        "trials_per_s": len(done) / wall_s,
+        "median_ms_per_trial": {k: _median([ms for _, ms in samples[k]])
+                                for k in ("consume", "trial_process", "reserve", "complete")},
+        "median_status_ms_per_trial": 2 * _median([ms for _, ms in samples["status"]]),
+        "calls": {k: len(v) for k, v in samples.items()},
+        "produce_ms": produce_ms, "gp_round_ms": produce_ms[1:],
+        "producer_suggest_ms": suggest_ms,
+        "regret": float(values.min()) - GLOBAL_MIN, "objective_max_abs_err": err,
+        "fused_gram_launches": launches,
+        "launch_shapes": {"x".join(map(str, k)): v for k, v in launch_shapes.shapes.items()},
+    }
+
+
+def read_worker_trace(path):
+    """From one ``hunt --profile`` trace: the ``gram.cu`` kernel's launches,
+    every kernel's count, the device's busy ms (the union of the kernel
+    intervals) and its idle share over the worker's loop (the host-side
+    ``hunt.workon`` span)."""
+    with open(path) as handle:
+        events = json.load(handle)["traceEvents"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "kernel")
+    gram_launches = sum(1 for e in events
+                        if e.get("cat") == "kernel" and GRAM_KERNEL in e.get("name", ""))
+    loops = [e for e in events
+             if e.get("name") == "hunt.workon" and e.get("cat") == "user_annotation"]
+    if len(loops) != 1:
+        raise AssertionError(f"{path}: {len(loops)} hunt.workon spans")
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in kernels:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    loop_ms = loops[0]["dur"] / 1e3
+    return {"fused_gram_launches": gram_launches, "kernels": len(kernels),
+            "loop_ms": loop_ms, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e3 / loop_ms}
+
+
+def _cli_command(*args):
+    return [sys.executable, "-m", "orion_tpu_torch.cli", "hunt", *args]
+
+
+def run_cohort(commands, timeout):
+    """Run each ``(argv, cwd)`` of ``commands`` at once, each in a session of
+    its own; wait for all.  Any process still running at ``timeout`` (or
+    after a failure here) is killed with everything it started.  Returns
+    the wall seconds; raises on a nonzero exit code."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(argv, env=env, cwd=cwd, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True, start_new_session=True)
+             for argv, cwd in commands]
+    t0 = time.perf_counter()
+    try:
+        errors = [proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))[1]
+                  for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    wall_s = time.perf_counter() - t0
+    failed = [(proc.returncode, err[-3000:]) for proc, err in zip(procs, errors)
+              if proc.returncode != 0]
+    if failed:
+        raise AssertionError(f"cli: exit codes and stderr {failed}")
+    return wall_s
+
+
+def read_traces(prof):
+    """:func:`read_worker_trace` of every trace in ``prof``, with its pid."""
+    return [dict(pid=int(f[6:-5]), **read_worker_trace(os.path.join(prof, f)))
+            for f in sorted(os.listdir(prof)) if f.startswith("trace-")]
+
+
+def run_cli_workers(tmp, device, workers=CLI_WORKERS, max_trials=CLI_WORKER_TRIALS, q=CLI_Q,
+                    algo=CLI_ALGO, timeout=600, hold_s=5.0):
+    """``python3 -m orion_tpu_torch.cli hunt --n-workers W --profile DIR`` on
+    a fresh SQLite file: checks that no trial ran twice (the user script
+    logs each execution's trial id), that every completed trial ran, and
+    that a GP round lied about a trial another worker held: one of the
+    random round's last five trials runs ``hold_s`` seconds longer, so the
+    workers that find the queue empty meanwhile lie about it.  Counts the
+    kernel in the workers' traces.  The config has no seed: processes that
+    share one suggest the same points, and their producers spin on
+    duplicate keys."""
+    from orion_tpu_torch.storage.base import create_storage
+
+    run_dir = os.path.join(tmp, "workers")
+    os.makedirs(run_dir)
+    unseeded = {k: v for k, v in algo.items() if k != "seed"}
+    script, config = write_cli_files(run_dir, unseeded)
+    db, log = os.path.join(run_dir, "workers.sqlite"), os.path.join(run_dir, "executions.log")
+    prof = os.path.join(run_dir, "profile")
+    wall_s = run_cohort([(_cli_command(
+        "-n", "cli-workers", "-c", config, "--storage-path", db, "--pool-size", str(q),
+        "--max-trials", str(max_trials), "--n-workers", str(workers), "--profile", prof,
+        "--device", device.type, script, *CLI_PRIORS, "--log", log,
+        "--hold-after", str(q - 5), "--hold-seconds", str(hold_s)), run_dir)], timeout)
+    storage = create_storage({"type": "sqlite", "path": db})
+    exp_id, trials = _fetch_trials(storage, "cli-workers")
+    done, values, err = check_cli_trials("cli workers", trials, max_trials, device)
+    with open(log) as handle:
+        executed = handle.read().split()
+    lies = storage.fetch_lies(exp_id)
+    with open(log + ".held") as handle:
+        held_id = handle.read()
+    held = next(t for t in trials if t.id == held_id)
+    per_worker = read_traces(prof)
+    launches = sum(w["fused_gram_launches"] for w in per_worker)
+    suggest_ms = [doc["duration"] * 1e3 for doc in storage.fetch_timings(exp_id)
+                  if doc["op"] == "suggest"]
+    out = {"workers": workers, "q": q, "trials": len(trials), "completed": len(done),
+           "executed": len(executed), "executed_distinct": len(set(executed)),
+           "lies": len(lies), "held_trial_lied_about": any(t.params == held.params for t in lies),
+           "wall_s": wall_s, "trials_per_s": len(done) / wall_s,
+           "statuses": dict(collections.Counter(t.status for t in trials)),
+           "producer_suggest_ms": suggest_ms,
+           "regret": float(values.min()) - GLOBAL_MIN, "fused_gram_launches": launches,
+           "per_worker": per_worker}
+    if len(executed) != len(set(executed)):
+        raise AssertionError(f"cli workers: {len(executed)} executions of "
+                             f"{len(set(executed))} distinct trials")
+    if not {t.id for t in done} <= set(executed):
+        raise AssertionError("cli workers: a completed trial never ran")
+    if len(per_worker) != workers or not out["held_trial_lied_about"] or launches < 1:
+        raise AssertionError(f"cli workers: {len(per_worker)} traces, {len(lies)} lies "
+                             f"(held trial among them: {out['held_trial_lied_about']}), "
+                             f"{launches} fused_gram launches")
+    return out
+
+
+def run_cli_regret(tmp, device, seeds=None, timeout=600):
+    """The regret gate's scenario through ``orion-tpu-torch hunt`` on the
+    default backend (``pickled``, in each run's working directory):
+    ``--pool-size q``, budget ``--max-trials``, the seed in the YAML; the
+    seeds run at once, one process each, traced (``--profile``) to count
+    the kernel's launches.  A curve is the incumbent's regret after each
+    ``q`` trials in submit order."""
+    from orion_tpu_torch.benchmarks.regret_gate import evaluate_regret_gate, load_baseline
+    from orion_tpu_torch.storage.base import create_storage
+
+    path = os.path.join(ROOT, "BENCH_REGRET_BASELINE.json")
+    with open(path) as handle:
+        config = json.load(handle)["config"]
+    baseline = load_baseline(path)
+    budget, q = config["budget"], config["q"]
+    seeds = list(seeds if seeds is not None else range(len(baseline)))
+    commands, run_dirs = [], []
+    for seed in seeds:
+        run_dir = os.path.join(tmp, f"regret-{seed}")
+        os.makedirs(run_dir)
+        script, cfg = write_cli_files(run_dir, dict(config["algo"]["tpu_bo"], seed=seed))
+        commands.append((_cli_command("-n", "regret", "-c", cfg, "--pool-size", str(q),
+                                      "--max-trials", str(budget), "--device", device.type,
+                                      "--profile", os.path.join(run_dir, "profile"),
+                                      script, *CLI_PRIORS), run_dir))
+        run_dirs.append(run_dir)
+    wall_s = run_cohort(commands, timeout)
+    curves, launches = [], 0
+    for seed, run_dir in zip(seeds, run_dirs):
+        storage = create_storage({"type": "pickled",
+                                  "path": os.path.join(run_dir, "orion_tpu_db.pkl")})
+        _, trials = _fetch_trials(storage, "regret")
+        trials.sort(key=lambda t: (t.submit_time or 0.0, t.id))
+        done, values, _ = check_cli_trials(f"cli regret seed {seed}", trials, budget, device)
+        curves.append([float(values[: k + q].min()) - GLOBAL_MIN
+                       for k in range(0, budget, q)])
+        launches += sum(w["fused_gram_launches"]
+                        for w in read_traces(os.path.join(run_dir, "profile")))
+    verdict = evaluate_regret_gate(curves, baseline)
+    return curves, baseline, verdict, launches, wall_s
+
+
+def interpreter_start_ms(runs=10):
+    """Median wall ms of starting this interpreter to run nothing, with its
+    ``site`` start-up and with ``-S``: the floor of a trial's process."""
+    def median_ms(argv):
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            subprocess.run(argv, check=True, timeout=60)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    return {"site": median_ms([sys.executable, "-c", "pass"]),
+            "no_site": median_ms([sys.executable, "-S", "-c", "pass"])}
+
+
+def phase_cli(device):
+    """The CLI worker path: one worker in process, ``CLI_WORKERS`` workers as
+    a subprocess, the regret gate through the CLI.  Returns
+    ``fused_gram``'s launches in each run."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        one = run_cli_hunt(tmp, device)
+        emit("cli", run="hunt", storage="sqlite", q=CLI_Q,
+             interpreter_start_ms=interpreter_start_ms(), **one)
+        many = run_cli_workers(tmp, device)
+        emit("cli", run="workers", storage="sqlite", **many)
+        curves, baseline, verdict, regret_launches, wall_s = run_cli_regret(tmp, device)
+    emit("cli", run="regret", storage="pickled", wall_s=wall_s, final=[c[-1] for c in curves],
+         baseline_final=[c[-1] for c in baseline], gate=verdict,
+         fused_gram_launches=regret_launches)
+    if not verdict["pass"]:
+        raise AssertionError("regret gate through the CLI failed against "
+                             "BENCH_REGRET_BASELINE.json")
+    return {"hunt": one["fused_gram_launches"], "workers": many["fused_gram_launches"],
+            "regret": regret_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -852,6 +1238,7 @@ def main():
     run("regret", phase_regret, device)
     asha_bo_launches = run("algorithms", phase_algorithms, device)
     hunt_launches = run("hunt", phase_hunt, device, plain_round_ms)
+    cli_launches = run("cli", phase_cli, device)
     emit("seconds", **seconds)
 
     def case(shape):
@@ -864,9 +1251,11 @@ def main():
         "route": "cuda",
         "source": "orion_tpu_torch/ops/csrc/gram.cu",
         "replaces": "orion_tpu/ops/gram.py:68",
-        "launches": launches["fused_gram"] + asha_bo_launches + hunt_launches,
+        "launches": (launches["fused_gram"] + asha_bo_launches + hunt_launches
+                     + sum(cli_launches.values())),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
-                             "hunt": hunt_launches},
+                             "hunt": hunt_launches, "cli": sum(cli_launches.values()),
+                             "cli_runs": cli_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

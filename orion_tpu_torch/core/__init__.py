@@ -1,6 +1,6 @@
 """Domain model (port of ``orion_tpu/core``): trials, parallel strategies,
-experiments and the producer.  The consumer, worker and pacemaker of the
-CLI path are ROADMAP queue A item 6b."""
+experiments, the producer, and the worker runtime of the CLI path (the
+consumer, the pacemaker and ``workon``)."""
 
 from orion_tpu_torch.core.experiment import (
     Experiment,

@@ -8,9 +8,11 @@ Backends of the port:
 - ``pickled`` — single file + advisory file lock, multi-process safe on one
   node; the default.  It also opens files that ``orion_tpu`` wrote
   (:func:`orion_tpu_torch.convert.storage_from_jax`).
+- ``sqlite`` — one SQLite file, row-level transactions; files cross between
+  the two packages in both directions.
 
-The reference's ``sqlite`` and ``network`` backends, its sharded router,
-fault injection and audit are ROADMAP queue A item 6b.
+The reference's ``network`` backend, its sharded router, fault injection
+and audit are ROADMAP queue A item 6b.
 """
 
 from orion_tpu_torch.storage.backends import PickledDB

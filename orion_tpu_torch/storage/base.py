@@ -1,6 +1,6 @@
 """Storage protocol: every coordination primitive workers rely on (port of
-``orion_tpu/storage/base.py`` over the two local backends, ``memory`` and
-``pickled``; the reference's telemetry spans and its metrics/spans
+``orion_tpu/storage/base.py`` over the three local backends, ``memory``,
+``pickled`` and ``sqlite``; the reference's telemetry spans and its metrics/spans
 channels are left out, as they only observe).
 
 Capability parity: reference `src/orion/storage/base.py` (BaseStorageProtocol,
@@ -872,9 +872,9 @@ class ReadOnlyStorage:
 def create_storage(config=None):
     """Build a storage instance from a config dict.
 
-    ``{"type": "memory"}`` or ``{"type": "pickled", "path": ...}``; the
-    reference's ``sqlite`` and ``network`` types (and ``shards:``) raise
-    :class:`NotImplementedError`.
+    ``{"type": "memory"}``, ``{"type": "pickled", "path": ...}`` or
+    ``{"type": "sqlite", "path": ...}``; the reference's ``network`` type
+    (and with it ``shards:``) raises :class:`NotImplementedError`.
     A ``retry`` sub-dict tunes the unified retry policy knobs
     (``max_attempts``/``base_delay``/``max_delay``/``multiplier``/
     ``jitter``/``deadline`` — docs/robustness.md); ``retry: false``
@@ -891,10 +891,18 @@ def create_storage(config=None):
             PickledDB(path, lock_timeout=config.get("lock_timeout", 60.0)),
             retry=retry,
         )
-    if db_type in ("sqlite", "sqlite3", "network", "netdb"):
+    if db_type in ("sqlite", "sqlite3"):
+        from orion_tpu_torch.storage.sqlitedb import SQLiteDB
+
+        path = config.get("path", "orion_tpu_db.sqlite")
+        return DocumentStorage(
+            SQLiteDB(path, timeout=config.get("lock_timeout", 60.0)),
+            retry=retry,
+        )
+    if db_type in ("network", "netdb"):
         raise NotImplementedError(
             f"storage type {db_type!r} is not ported yet (ROADMAP queue A "
-            "item 6b); orion_tpu_torch has 'memory' and 'pickled'"
+            "item 6b); orion_tpu_torch has 'memory', 'pickled' and 'sqlite'"
         )
     raise DatabaseError(f"Unknown storage type {db_type!r}")
 

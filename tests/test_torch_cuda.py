@@ -234,3 +234,93 @@ def test_naive_copy_generator_hand_off_on_cuda(cuda):
     assert real._hist.count == 6 and naive._hist.count == 8
     assert real._hist._x.data_ptr() != naive._hist._x.data_ptr()
     assert float(real._hist.fit_view()[2].sum()) == 6.0
+
+
+_CLI_BOX = """import argparse
+
+from orion_tpu_torch.client import report_results
+
+parser = argparse.ArgumentParser()
+for i in range(6):
+    parser.add_argument(f"-x{i}", type=float, required=True)
+args = vars(parser.parse_args())
+report_results([{"name": "objective", "type": "objective",
+                 "value": sum((v - 0.3) ** 2 for v in args.values())}])
+"""
+
+
+def _cli_experiment_with_history(tmp_path, n_completed=256):
+    """``orion-tpu-torch init-only`` of a six-dimensional experiment on
+    SQLite whose ``tpu_bo`` runs the main path's config, then
+    ``n_completed`` random trials completed through the library, so that
+    the hunt's first round is a GP round.  Returns the storage path."""
+    import numpy as np
+    import yaml
+
+    from orion_tpu_torch.cli import main
+    from orion_tpu_torch.core.experiment import build_experiment
+    from orion_tpu_torch.core.trial import Result, Trial
+    from orion_tpu_torch.storage.base import create_storage
+
+    script, conf = tmp_path / "box.py", tmp_path / "bo.yaml"
+    script.write_text(_CLI_BOX)
+    conf.write_text(yaml.safe_dump({"algorithms": {"tpu_bo": dict(HUNT_ALGO["tpu_bo"],
+                                                                  seed=0)}}))
+    db = str(tmp_path / "cli.sqlite")
+    assert main(["init-only", "-n", "cli", "--storage-path", db, "-c", str(conf), str(script),
+                 *[f"-x{i}~uniform(0, 1)" for i in range(6)]]) == 0
+    exp = build_experiment(create_storage({"type": "sqlite", "path": db}), "cli")
+    rows = np.random.default_rng(0).uniform(size=(n_completed, 6))
+    exp.register_trials([Trial(params={f"/x{i}": float(r[i]) for i in range(6)})
+                         for r in rows])
+    trials = exp.reserve_trials(n_completed)
+    exp.update_completed_trials([
+        (t, [Result("objective", "objective", sum((v - 0.3) ** 2 for v in t.params.values()))])
+        for t in trials])
+    assert exp.storage.count_completed_trials(exp.id) == n_completed
+    return db
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", [False, True], ids=["plain", "profile"])
+def test_cli_hunt_gp_round_launches_fused_gram_at_the_main_shape(cuda, tmp_path, monkeypatch,
+                                                                 profile):
+    """``orion-tpu-torch hunt`` in process on SQLite, ``--device`` left at
+    its ``cuda`` default, over 256 completed trials: the first round is a
+    GP round of 1024 whose EI ranking runs the 16384 x 256 x 6 cross-gram
+    in the kernel, never in the plain version.  With ``--profile DIR`` the
+    worker's trace holds the kernel inside the ``hunt.workon`` span."""
+    import json
+    import os
+
+    from orion_tpu_torch.cli import main
+
+    db = _cli_experiment_with_history(tmp_path)
+    shapes = []
+    plan = gram._launch_plan
+
+    def recording_plan(m, n, d, aligned):
+        shapes.append((m, n, d))
+        return plan(m, n, d, aligned)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(gram, "_launch_plan", recording_plan)
+    monkeypatch.setattr(gram, "fused_gram_reference", plain)
+    before = gram.fused_gram.launches
+    prof = tmp_path / "prof"
+    extra = ["--profile", str(prof)] if profile else []
+    assert main(["hunt", "-n", "cli", "--storage-path", db, "--pool-size", "1024",
+                 "--max-trials", "257", *extra]) == 0
+    assert gram.fused_gram.launches - before == len(shapes) >= 1
+    assert (16384, 256, 6) in shapes
+    if profile:
+        with open(prof / f"trace-{os.getpid()}.json") as handle:
+            events = json.load(handle)["traceEvents"]
+        [loop] = [e for e in events
+                  if e.get("name") == "hunt.workon" and e.get("cat") == "user_annotation"]
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and "gram_kernel" in e.get("name", "")]
+        assert len(kernels) == len(shapes)
+        assert all(loop["ts"] <= e["ts"] <= loop["ts"] + loop["dur"] for e in kernels)

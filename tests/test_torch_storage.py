@@ -56,6 +56,8 @@ def _random_query(rng):
         {"params.x": {"$lt": rng.random()}},
         {"nested.a.b": rng.randint(0, 3)},
         {"experiment": rng.choice(["e1", "e2"]), "status": rng.choice(STATUSES)},
+        {"experiment": rng.choice(["e1", "e2"]),
+         "status": {"$in": rng.sample(STATUSES, 3) + ["new"]}},
         {"_id": f"t{rng.randint(0, 60)}"},
         {"_id": {"$in": [f"t{rng.randint(0, 60)}" for _ in range(3)]}},
         {"tags": {"$gte": 1}},
@@ -311,7 +313,7 @@ def test_retry_policy_matches_reference():
 
 
 def test_unported_backends_raise_not_implemented():
-    for db_type in ("sqlite", "network"):
+    for db_type in ("network", "netdb"):
         with pytest.raises(NotImplementedError, match="6b"):
             create_storage({"type": db_type})
     with pytest.raises(DatabaseError):
