@@ -63,7 +63,19 @@ non-zero; nothing is caught and passed over):
    Last the regret gate's scenario through the CLI on ``pickled``, the
    five seeds at once, judged by the port's gate.  Every objective the
    script reported must equal the port's Hartmann6 on the card.
-10. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+10. ``evc``: experiment version control through the CLI on the ``cli``
+   phase's one-worker store.  ``hunt -n cli`` again with ``x0 ~ uniform(0,
+   0.5)`` branches version 2 (a prior change), then with ``x1`` narrowed as
+   well version 3; each runs 256 trials of its own at ``--pool-size 1024``.
+   Each child's producer fetches its ancestors' trials through the EVC
+   tree, adapted hop by hop, so its first round is a GP round (a
+   ``fused_gram`` launch at 16384 x 256 x 6).  Checks the ``refers`` chain,
+   the adapted trial counts against the stored params, each child's rows
+   inside its prior and their objectives, ``audit --all`` clean and the tree
+   ``list`` prints; reports the tree fetch, suggest and GP round ms,
+   trials/s and the audit ms.  Then a NaN and an infinite objective through
+   the port's ``SQLiteDB`` on this host's SQLite.
+11. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -78,6 +90,7 @@ import queue
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -809,8 +822,6 @@ def phase_hunt(device, plain_round_ms):
     two workers, the regret gate through ``optimize()``.  Returns
     ``fused_gram``'s launches over all of it (zeroed before each run, read
     after it)."""
-    import tempfile
-
     from orion_tpu_torch.benchmarks.regret_gate import evaluate_regret_gate, load_baseline
     from orion_tpu_torch.ops import gram
     from orion_tpu_torch.storage.base import create_storage
@@ -1192,19 +1203,17 @@ def interpreter_start_ms(runs=10):
             "no_site": median_ms([sys.executable, "-S", "-c", "pass"])}
 
 
-def phase_cli(device):
+def phase_cli(device, tmp):
     """The CLI worker path: one worker in process, ``CLI_WORKERS`` workers as
-    a subprocess, the regret gate through the CLI.  Returns
-    ``fused_gram``'s launches in each run."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        one = run_cli_hunt(tmp, device)
-        emit("cli", run="hunt", storage="sqlite", q=CLI_Q,
-             interpreter_start_ms=interpreter_start_ms(), **one)
-        many = run_cli_workers(tmp, device)
-        emit("cli", run="workers", storage="sqlite", **many)
-        curves, baseline, verdict, regret_launches, wall_s = run_cli_regret(tmp, device)
+    a subprocess, the regret gate through the CLI.  The one-worker hunt's
+    store stays in ``tmp`` for the ``evc`` phase.  Returns ``fused_gram``'s
+    launches in each run."""
+    one = run_cli_hunt(tmp, device)
+    emit("cli", run="hunt", storage="sqlite", q=CLI_Q,
+         interpreter_start_ms=interpreter_start_ms(), **one)
+    many = run_cli_workers(tmp, device)
+    emit("cli", run="workers", storage="sqlite", **many)
+    curves, baseline, verdict, regret_launches, wall_s = run_cli_regret(tmp, device)
     emit("cli", run="regret", storage="pickled", wall_s=wall_s, final=[c[-1] for c in curves],
          baseline_final=[c[-1] for c in baseline], gate=verdict,
          fused_gram_launches=regret_launches)
@@ -1213,6 +1222,169 @@ def phase_cli(device):
                              "BENCH_REGRET_BASELINE.json")
     return {"hunt": one["fused_gram_launches"], "workers": many["fused_gram_launches"],
             "regret": regret_launches}
+
+
+#: The ``evc`` phase: the ``cli`` phase's one-worker hunt (v1) resumed twice
+#: with a narrower prior, each branching a child that runs ``EVC_TRIALS``
+#: trials of its own: v2 with ``x0 ~ uniform(0, 0.5)``, v3 with ``x1`` too.
+EVC_NARROWED = (0, 1)
+EVC_TRIALS = 256
+EVC_TREE = "cli-v1\n└── cli-v2\n    └── cli-v3\n"
+
+
+def _cli_output(argv):
+    """``orion-tpu-torch`` in this process: (exit code, stdout, wall ms)."""
+    import contextlib
+    import io
+
+    from orion_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), (time.perf_counter() - t0) * 1e3
+
+
+def run_evc_chain(tmp, device, q=CLI_Q, max_trials=EVC_TRIALS, narrowed=EVC_NARROWED,
+                  algo=CLI_ALGO):
+    """``orion-tpu-torch hunt -n cli`` on the ``cli`` phase's SQLite store,
+    once for each dimension of ``narrowed``, each time with that prior
+    narrowed to [0, 0.5] as well: every call branches a child of the last
+    version, whose producer fetches the family's trials through the EVC tree
+    (adapted hop by hop) before its first suggest.  Checks the ``refers``
+    chain; that each child's first tree fetch held exactly the ancestors'
+    trials inside the child's prior (counted here from the stored params);
+    that its first round was a GP round (a ``fused_gram`` launch at the main
+    path's shape, no random round); that its rows lie in its prior and its
+    objectives are Hartmann6's; then ``audit --all`` and ``list``."""
+    from orion_tpu_torch.core.producer import Producer
+    from orion_tpu_torch.evc.experiment import TreeTrialsFetcher
+    from orion_tpu_torch.ops import gram
+    from orion_tpu_torch.storage.base import create_storage
+
+    script, config = write_cli_files(tmp, algo)
+    db = os.path.join(tmp, "cli.sqlite")
+    fetch, produce = TreeTrialsFetcher.__dict__["fetch"], Producer.__dict__["produce"]
+    fetches, produced = [], []
+
+    def counted_fetch(self):
+        t0 = time.perf_counter()
+        trials = fetch(self)
+        family = [t for t in trials if t.experiment != self.node_id]
+        fetches.append({"ms": (time.perf_counter() - t0) * 1e3, "trials": len(trials),
+                        "family": len(family),
+                        "family_completed": sum(t.status == "completed" for t in family)})
+        return trials
+
+    bounds, generations = {}, []
+    for version, dim in enumerate(narrowed, start=2):
+        bounds[dim] = 0.5
+        priors = [f"-x{i}~uniform(0, {bounds.get(i, 1)})" for i in range(6)]
+        fetches.clear()
+        produced.clear()
+        TreeTrialsFetcher.fetch = counted_fetch
+        Producer.produce = _timed(produce, produced)
+        gram.fused_gram.launches = 0
+        try:
+            with _LaunchShapes() as launch_shapes:
+                t0 = time.perf_counter()
+                rc, _, _ = _cli_output(["hunt", "-n", "cli", "-c", config, "--storage-path", db,
+                                        "--pool-size", str(q), "--max-trials", str(max_trials),
+                                        "--device", device.type, script, *priors])
+                wall_s = time.perf_counter() - t0
+        finally:
+            TreeTrialsFetcher.fetch, Producer.produce = fetch, produce
+        launches = gram.fused_gram.launches
+        if rc != 0:
+            raise AssertionError(f"evc v{version}: exit code {rc}")
+        storage = create_storage({"type": "sqlite", "path": db})
+        exps = {e["version"]: e for e in storage.fetch_experiments({"name": "cli"})}
+        child, parent, root = exps[version], exps[version - 1], exps[1]
+        if (child["refers"].get("parent_id") != parent["_id"]
+                or child["refers"].get("root_id") != root["_id"]):
+            raise AssertionError(f"evc v{version}: refers {child['refers']}")
+        trials = storage.fetch_trials(uid=child["_id"])
+        done, values, err = check_cli_trials(f"evc v{version}", trials, max_trials, device)
+        if any(t.params[f"/x{i}"] > hi for t in trials for i, hi in bounds.items()):
+            raise AssertionError(f"evc v{version}: a row outside the prior {bounds}")
+        ancestors = [t for v in range(1, version) for t in storage.fetch_trials(uid=exps[v]["_id"])]
+        inside = [t for t in ancestors
+                  if all(0.0 <= t.params[f"/x{i}"] <= hi for i, hi in bounds.items())]
+        first = fetches[0] if fetches else {}
+        if first.get("family") != len(inside) or first.get("trials") != len(inside):
+            raise AssertionError(f"evc v{version}: first tree fetch {first}, expected "
+                                 f"{len(inside)} adapted ancestor trials and none of its own")
+        if launches < 1 or launch_shapes.shapes[MAIN_SHAPE] < 1:
+            raise AssertionError(f"evc v{version}: first round not a GP round: fused_gram "
+                                 f"launched {launches} times ({dict(launch_shapes.shapes)})")
+        suggest_ms = [doc["duration"] * 1e3 for doc in storage.fetch_timings(child["_id"])
+                      if doc["op"] == "suggest"]
+        generations.append({
+            "version": version, "priors": priors, "wall_s": wall_s,
+            "trials": len(trials), "completed": len(done), "trials_per_s": len(done) / wall_s,
+            "family_trials_observed": first["family"],
+            "family_completed_observed": first["family_completed"],
+            "tree_fetch_ms": [f["ms"] for f in fetches],
+            "median_tree_fetch_ms": _median([f["ms"] for f in fetches]),
+            "producer_suggest_ms": suggest_ms, "median_suggest_ms": _median(suggest_ms),
+            "gp_round_ms": produced[0][1], "produce_ms": [ms for _, ms in produced],
+            "regret": float(values.min()) - GLOBAL_MIN, "objective_max_abs_err": err,
+            "fused_gram_launches": launches,
+            "launch_shapes": {"x".join(map(str, k)): v for k, v in launch_shapes.shapes.items()},
+        })
+    rc, report, audit_ms = _cli_output(["audit", "--all", "--storage-path", db])
+    if rc != 0 or "violation(s)" in report:
+        raise AssertionError(f"evc: audit --all exited {rc}:\n{report}")
+    rc, tree, list_ms = _cli_output(["list", "--storage-path", db])
+    if rc != 0 or tree != EVC_TREE:
+        raise AssertionError(f"evc: list exited {rc} and printed {tree!r}")
+    return {"generations": generations, "audit_ms": audit_ms, "audit": report.splitlines(),
+            "list_ms": list_ms, "list": tree.splitlines()}
+
+
+def check_sqlite_non_finite(tmp):
+    """On this host's SQLite: a trial holding NaN, and a reservation claim
+    completing another with an infinite objective, through the port's
+    ``SQLiteDB`` with its partial field indexes; the worker loop's count
+    reads the field index and ``json_valid`` rejects NaN, as the indexes
+    assume on every SQLite."""
+    import sqlite3
+
+    from orion_tpu_torch.storage import sqlitedb
+
+    db = sqlitedb.SQLiteDB(os.path.join(tmp, "non-finite.sqlite"))
+    doc = {"_id": "a", "experiment": "e", "status": "reserved", "results": []}
+    db.write("trials", dict(doc))
+    db.write("trials", dict(doc, _id="b", results=[
+        {"name": "o", "type": "objective", "value": float("nan")}]))
+    done = db.read_and_write("trials", {"experiment": "e", "status": "reserved"}, {
+        "$set": {"status": "completed",
+                 "results": [{"name": "o", "type": "objective", "value": float("inf")}]}})
+    completed = db.count("trials", {"experiment": "e", "status": "completed"})
+    conn = db._conn()
+    nonstandard = conn.execute(
+        f"SELECT COUNT(*) FROM docs WHERE NOT {sqlitedb._VALID_JSON}").fetchone()[0]
+    clauses, params = db._sql_prefilter({"experiment": "e", "status": "completed"})
+    plan = conn.execute("EXPLAIN QUERY PLAN SELECT COUNT(*) FROM docs WHERE collection = ? AND "
+                        + " AND ".join([sqlitedb._VALID_JSON, *clauses]),
+                        ("trials", *params)).fetchall()[0][-1]
+    json_valid_nan = conn.execute("SELECT json_valid('[NaN]')").fetchone()[0]
+    out = {"sqlite": sqlite3.sqlite_version, "json_valid_nan": json_valid_nan,
+           "completed": completed, "nonstandard_docs": nonstandard, "count_plan": plan}
+    if (done["_id"] != "a" or completed != 1 or nonstandard != 2 or json_valid_nan != 0
+            or "docs_valid_experiment_status" not in plan):
+        raise AssertionError(f"sqlite non-finite check: {out}")
+    return out
+
+
+def phase_evc(device, tmp):
+    """EVC branching through the CLI on the ``cli`` phase's store, and the
+    SQLite non-finite check.  Returns ``fused_gram``'s launches."""
+    chain = run_evc_chain(tmp, device)
+    emit("evc", storage="sqlite", q=CLI_Q, sqlite_non_finite=check_sqlite_non_finite(tmp),
+         **chain)
+    return sum(g["fused_gram_launches"] for g in chain["generations"])
 
 
 def main():
@@ -1238,7 +1410,9 @@ def main():
     run("regret", phase_regret, device)
     asha_bo_launches = run("algorithms", phase_algorithms, device)
     hunt_launches = run("hunt", phase_hunt, device, plain_round_ms)
-    cli_launches = run("cli", phase_cli, device)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        cli_launches = run("cli", phase_cli, device, tmp)
+        evc_launches = run("evc", phase_evc, device, tmp)
     emit("seconds", **seconds)
 
     def case(shape):
@@ -1252,10 +1426,10 @@ def main():
         "source": "orion_tpu_torch/ops/csrc/gram.cu",
         "replaces": "orion_tpu/ops/gram.py:68",
         "launches": (launches["fused_gram"] + asha_bo_launches + hunt_launches
-                     + sum(cli_launches.values())),
+                     + sum(cli_launches.values()) + evc_launches),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
                              "hunt": hunt_launches, "cli": sum(cli_launches.values()),
-                             "cli_runs": cli_launches},
+                             "cli_runs": cli_launches, "evc": evc_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -119,11 +119,13 @@ def _default_user():
         return os.environ.get("USER", "unknown")
 
 
-def build_from_args(args, allow_create=True):
+def build_from_args(args, need_user_args=True, allow_create=True, view=False):
     """CLI args -> (experiment, cmdline_parser), with storage wired up.
 
-    ``allow_create=False`` (the lookup command ``insert``) only loads
+    ``allow_create=False`` (lookup commands: audit, insert) only loads
     existing experiments — a typo'd name must never persist a ghost.
+    ``view=True`` additionally wraps the result in a read-only
+    :class:`ExperimentView` (the audit path).
     """
     config = load_cli_config(args)
     if not config.get("name"):
@@ -134,7 +136,7 @@ def build_from_args(args, allow_create=True):
     user_args = list(getattr(args, "user_args", []) or [])
     priors = parser.parse(user_args)
     existing = []
-    if not allow_create or not user_args:
+    if not allow_create or (need_user_args and not user_args):
         # Check BEFORE build_experiment would persist an empty experiment —
         # including the requested version, or a typo'd --exp-version would
         # pass the name check and still create a ghost.
@@ -166,6 +168,10 @@ def build_from_args(args, allow_create=True):
             version=latest.get("version"),
             user=config.get("user"),
         )
+        if view:
+            from orion_tpu_torch.core.experiment import ExperimentView
+
+            experiment = ExperimentView(experiment)
         return experiment, parser
 
     metadata = {
@@ -248,7 +254,7 @@ def build_from_args(args, allow_create=True):
             # it (reference metadata schema: experiment.py:120-155).
             parser = CommandLineParser()
             parser.parse(list(experiment.metadata["user_args"]))
-        else:
+        elif need_user_args:
             raise NoConfigurationError(
                 f"experiment {experiment.name!r} has no stored command to resume; "
                 "provide the user script on the command line"

@@ -8,7 +8,7 @@ line**, with the worker knobs (`heartbeat`, `max_broken`, `max_idle_time`)
 and storage selection (`ORION_DB_TYPE` / `ORION_DB_ADDRESS` env overrides)
 of the reference's global Configuration object.
 
-The port has no telemetry plane yet (ROADMAP queue A item 9): a non-null
+The port has no telemetry plane yet (ROADMAP queue A item 5): a non-null
 ``telemetry``, ``metrics_port`` or ``doctor_interval`` in any layer raises
 :class:`NotImplementedError` rather than being ignored.
 """
@@ -99,11 +99,11 @@ DEFAULTS = {
     # `retry: false` disables storage-level retries entirely.
     # The reference's `network` type (and its `shards:` stanza, also set by
     # the ORION_DB_SHARDS env var) resolves here as it does there and is
-    # refused by create_storage until it is ported (ROADMAP queue A 6b).
+    # refused by create_storage until it is ported (ROADMAP queue A item 7).
     "storage": {"type": "pickled", "path": "orion_tpu_db.pkl", "retry": {}},
     # The reference's telemetry switch, worker metrics port and diagnosis
     # interval: the port has no telemetry plane yet, so resolve_config
-    # raises when any layer sets one (ROADMAP queue A item 9).
+    # raises when any layer sets one (ROADMAP queue A item 5).
     "telemetry": None,
     "metrics_port": None,
     "doctor_interval": None,
@@ -111,7 +111,7 @@ DEFAULTS = {
     # experiment identity.  None = local algorithm instance (the default);
     # a section (or the ORION_SERVE_ADDRESS / ORION_SERVE_ADDRESSES env
     # vars) asks for the gateway, which Experiment.instantiate refuses
-    # until it is ported (ROADMAP queue A item 7).
+    # until it is ported (ROADMAP queue A item 8).
     "serve": None,
 }
 
@@ -197,6 +197,6 @@ def resolve_config(file_config=None, cmd_config=None, storage_override=None):
     if unported:
         raise NotImplementedError(
             f"{', '.join(unported)}: the telemetry plane is not ported yet "
-            "(ROADMAP queue A item 9)"
+            "(ROADMAP queue A item 5, old item 9)"
         )
     return config

@@ -5,14 +5,14 @@ Capability parity: reference `src/orion/core/worker/experiment.py` — load by
 (name, version) with latest-version resolution, trial operations delegated to
 storage (atomic reservation + lost-trial sweep, registration with submit
 time, lies, completed updates), `is_done`/`is_broken` from DB counts, stats,
-and `configure()` with race-condition handling.
+and `configure()` with race-condition handling.  Branching/conflict logic
+lives in `orion_tpu_torch.evc` and is invoked from the builder, not here.
 
-Not ported yet, each raising :class:`NotImplementedError` that names its
-ROADMAP item: EVC branching on a config conflict and the EVC tree fetch
-(queue A item 8), a ``serve`` section's remote algorithm (item 7) and the
-storage audit (item 6b).  ``instantiate(device=None)`` builds the algorithm
-on ``cuda`` and raises where no card is present; the CPU runs only when
-``device="cpu"`` is passed.
+Not ported yet: a ``serve`` section's remote algorithm, which raises
+:class:`NotImplementedError` naming ROADMAP queue A item 8.
+``instantiate(device=None)`` builds the algorithm on ``cuda`` and raises
+where no card is present; the CPU runs only when ``device="cpu"`` is
+passed.
 """
 
 import logging
@@ -92,7 +92,7 @@ class Experiment:
         if self.serve_config:
             raise NotImplementedError(
                 "a serve section (remote algorithm on the suggest gateway) "
-                "is not ported yet: ROADMAP queue A item 7"
+                "is not ported yet: ROADMAP queue A item 8, old item 7"
             )
         self.algorithm = create_algo(
             self.space, self.algo_config, seed=seed, device=device
@@ -282,9 +282,11 @@ class Experiment:
 
     def fetch_trials(self, with_evc_tree=False):
         if with_evc_tree:
-            raise NotImplementedError(
-                "the EVC tree fetch is not ported yet: ROADMAP queue A item 8"
-            )
+            # Roots have empty refers but may still have children — the tree
+            # walk itself discovers both directions.
+            from orion_tpu_torch.evc.experiment import fetch_tree_trials
+
+            return fetch_tree_trials(self)
         return self._storage.fetch_trials(uid=self._id)
 
     def fetch_trials_by_status(self, status):
@@ -309,9 +311,13 @@ class Experiment:
         return self._storage.count_broken_trials(self._id) >= self.max_broken
 
     def audit(self, lost_timeout=None):
-        """The storage invariant auditor of the reference; not ported yet."""
-        raise NotImplementedError(
-            "the storage audit is not ported yet: ROADMAP queue A item 6b"
+        """Run the storage invariant auditor over this experiment's trials
+        (``orion_tpu_torch.storage.audit``); the orphaned-reservation
+        threshold defaults to this experiment's heartbeat window."""
+        from orion_tpu_torch.storage.audit import audit_experiment
+
+        return audit_experiment(
+            self._storage, self, lost_timeout=lost_timeout
         )
 
     # --- stats --------------------------------------------------------------
@@ -405,12 +411,9 @@ def build_experiment(
 
     Resolution: fetch latest (or requested) version from storage; if absent,
     create version 1 with the given config.  If present and the new config
-    conflicts with the stored one, the reference branches (a version-bump
-    child experiment); the port has no EVC yet and raises
-    :class:`NotImplementedError` (ROADMAP queue A item 8), and
-    ``branch_config`` (the reference's branching options) is accepted and
-    not used.  Races on concurrent creation retry once (RaceCondition
-    semantics).
+    conflicts with the stored one, delegate to EVC branching (a version bump
+    child experiment) — `orion_tpu_torch.evc.builder.branch_experiment`.
+    Races on concurrent creation retry once (RaceCondition semantics).
     """
     config = {k: v for k, v in config.items() if v is not None}
     for attempt in range(2):
@@ -447,7 +450,11 @@ def build_experiment(
         # search space, an explicitly-given algorithm config (an omitted
         # algorithms key means "resume as stored", never a silent downgrade
         # to the default), the user script's VCS state, its config file
-        # hash, or its non-prior command line.
+        # hash, or its non-prior command line.  The same detector drives the
+        # branch itself, so the gate and the branching can never disagree.
+        from orion_tpu_torch.evc.builder import branch_experiment
+        from orion_tpu_torch.evc.conflicts import detect_conflicts
+
         exp = Experiment(storage, existing)
         candidate = {
             "name": name,
@@ -455,63 +462,19 @@ def build_experiment(
             "algorithms": config.get("algorithms"),
             "metadata": config.get("metadata") or {},
         }
-        conflicts = config_conflicts(exp.configuration(), candidate)
-        if conflicts:
-            raise NotImplementedError(
-                f"experiment {name!r} exists with another configuration "
-                f"({', '.join(conflicts)}); branching it (EVC) is not ported "
-                "yet: ROADMAP queue A item 8"
+        if detect_conflicts(exp.configuration(), candidate).conflicts:
+            return branch_experiment(
+                storage,
+                exp,
+                candidate["priors"],
+                branch_config=branch_config,
+                **config,
             )
         for key in ("max_trials", "pool_size", "working_dir", "max_broken"):
             if key in config and config[key] is not None:
                 setattr(exp, key, config[key])
         return exp
     raise RaceCondition(f"could not build experiment {name!r}")
-
-
-def _normalized(expr):
-    return "".join(str(expr).split())
-
-
-def _non_prior_args(user_args):
-    return [a for a in user_args if "~" not in a]
-
-
-def config_conflicts(old_config, new_config):
-    """Names of what differs between a stored configuration and a new one,
-    by the tests of the reference's ``orion_tpu/evc/conflicts.py::
-    detect_conflicts``: the priors (whitespace-insensitive, a branching
-    marker counts as a change), an explicitly given algorithm, the code
-    version, the non-prior command line and the script config hash.  Empty
-    when the experiment resumes as it is."""
-    out = []
-    old_priors = dict(old_config.get("priors") or {})
-    new_priors = dict(new_config.get("priors") or {})
-    if set(old_priors) != set(new_priors) or any(
-        _normalized(old_priors[k]) != _normalized(new_priors[k]) for k in old_priors
-    ):
-        out.append("priors")
-    old_algo = old_config.get("algorithms")
-    new_algo = new_config.get("algorithms")
-    if new_algo is not None and old_algo is not None and old_algo != new_algo:
-        out.append("algorithms")
-    old_meta = old_config.get("metadata") or {}
-    new_meta = new_config.get("metadata") or {}
-    old_vcs = old_meta.get("vcs") or {}
-    new_vcs = new_meta.get("vcs") or {}
-    old_sig = (old_vcs.get("HEAD_sha"), old_vcs.get("diff_sha"))
-    new_sig = (new_vcs.get("HEAD_sha"), new_vcs.get("diff_sha"))
-    if any(old_sig) and any(new_sig) and old_sig != new_sig:
-        out.append("code")
-    if new_meta.get("user_args") and _non_prior_args(
-        old_meta.get("user_args", [])
-    ) != _non_prior_args(new_meta["user_args"]):
-        out.append("command line")
-    old_conf = old_meta.get("script_config_hash")
-    new_conf = new_meta.get("script_config_hash")
-    if old_conf and new_conf and old_conf != new_conf:
-        out.append("script config")
-    return out
 
 
 def experiment_id(name, version, user=None):

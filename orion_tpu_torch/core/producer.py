@@ -24,8 +24,6 @@ Where the port differs from the reference:
   recorder, the device-memory gauge and the serve-placement gauges.  The
   per-round health record is kept (``record_health=True``) without the
   reference's ``mem_bytes`` stamp.
-- An experiment with an EVC family (a parent or children) raises
-  :class:`NotImplementedError`: the tree fetch is ROADMAP queue A item 8.
 """
 
 import copy
@@ -168,20 +166,27 @@ class Producer:
         # opt-in model-based speculation.  Reset whenever the naive copy is
         # rebuilt.
         self._spec_conditioned = set()
-        # Probe the EVC family ONCE (a parent, or a child naming this
-        # experiment as its parent): its trials come through the EVC tree,
-        # which the port does not have yet.
+        # Probe the EVC family ONCE: walking the tree costs extra collection
+        # scans per round (each a full lock/unpickle on the file backend),
+        # which an un-branched experiment should never pay.  A branch
+        # appearing mid-run is picked up by the next worker process.
+        # The fetcher is incremental: topology and adapted family trials are
+        # cached, only changed trials re-read and re-adapted each round.
+        self._tree_fetcher = None
         if experiment.refers.get("parent_id") or experiment.storage.fetch_experiments(
             {"refers.parent_id": experiment.id}, projection={"_id": 1}
         ):
-            raise NotImplementedError(
-                f"experiment {experiment.name!r} has an EVC family; fetching "
-                "its tree is not ported yet: ROADMAP queue A item 8"
-            )
+            from orion_tpu_torch.evc.experiment import TreeTrialsFetcher
+
+            self._tree_fetcher = TreeTrialsFetcher(experiment)
 
     # --- observation --------------------------------------------------------
     def update(self):
         """Sync algorithm state with storage (reference `producer.py:103-132`).
+
+        Trials come through the EVC tree: a branched child warm-starts from
+        its ancestors' completed trials, adapted hop by hop (reference
+        `evc/experiment.py:154-226` — the point of branching).
 
         The round's snapshot comes from storage.fetch_update_view, which
         count-gates the completed history on capable backends (update()
@@ -189,20 +194,28 @@ class Producer:
         completed history each time costs O(trials) per call) and keeps
         the single full fetch elsewhere — see its docstring for the
         consistency and ordering contract."""
-        # Every 16th sync forces the gate open: the count gate assumes the
-        # completed count only grows, which a concurrent db-level remove of
-        # a completed trial (offset by a fresh completion) could violate —
-        # the periodic full read bounds that staleness window instead of
-        # trusting the invariant forever.
-        self._update_epoch += 1
-        known = self._n_completed_seen if self._update_epoch % 16 else -1
-        trials, self._n_completed_seen = (
-            self.experiment.storage.fetch_update_view(self.experiment, known)
-        )
+        if self._tree_fetcher is not None:
+            trials = self._tree_fetcher.fetch()
+        else:
+            # Every 16th sync forces the gate open: the count gate assumes
+            # the completed count only grows, which a concurrent db-level
+            # remove of a completed trial (offset by a fresh completion)
+            # could violate — the periodic full read bounds that staleness
+            # window instead of trusting the invariant forever.
+            self._update_epoch += 1
+            known = self._n_completed_seen if self._update_epoch % 16 else -1
+            trials, self._n_completed_seen = (
+                self.experiment.storage.fetch_update_view(self.experiment, known)
+            )
         completed = [t for t in trials if t.status == "completed" and t.objective]
         incomplete = [t for t in trials if not t.is_stopped]
-        self._n_in_flight = sum(t.status == "reserved" for t in trials)
-        self._n_reservable = sum(t.status in RESERVABLE_STATUSES for t in trials)
+        # Exhaustion/backoff accounting counts THIS experiment's trials only:
+        # the EVC tree fetch includes the family's trials, which this worker
+        # can never reserve and whose completions feed ancestors, not us.
+        own_id = self.experiment.id
+        own = [t for t in trials if t.experiment == own_id]
+        self._n_in_flight = sum(t.status == "reserved" for t in own)
+        self._n_reservable = sum(t.status in RESERVABLE_STATUSES for t in own)
         self._update_algorithm(completed)
         # Bound the columnar cache: stopped trials are never lied about
         # again, so their rows are dead weight.  Completed-with-objective

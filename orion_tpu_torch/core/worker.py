@@ -8,7 +8,7 @@ end.  Many workers running this loop against one shared storage is the
 framework's data-parallel execution model; on-device parallelism lives
 inside each algorithm's suggest step.
 
-Left out, as they belong to the telemetry plane (ROADMAP queue A item 9):
+Left out, as they belong to the telemetry plane (ROADMAP queue A item 5):
 the worker's metrics server, the diagnosis watchdog and the crash flight
 record.
 """

@@ -9,7 +9,7 @@ gitpython dependency — and degrades to None outside a repository, so
 experiments on unversioned scripts simply never raise CodeConflict.
 
 The captured dict feeds
-:func:`orion_tpu_torch.core.experiment.config_conflicts`: a changed
+:func:`orion_tpu_torch.evc.conflicts.detect_conflicts`: a changed
 ``HEAD_sha`` (or a changed dirty-diff sha) between two hunts of the same
 experiment, or a changed script-config content hash, is a conflict.
 """

@@ -11,8 +11,8 @@ Backends of the port:
 - ``sqlite`` — one SQLite file, row-level transactions; files cross between
   the two packages in both directions.
 
-The reference's ``network`` backend, its sharded router, fault injection
-and audit are ROADMAP queue A item 6b.
+The reference's ``network`` backend, its sharded router and fault injection
+are ROADMAP queue A item 7; the audit is :mod:`orion_tpu_torch.storage.audit`.
 """
 
 from orion_tpu_torch.storage.backends import PickledDB

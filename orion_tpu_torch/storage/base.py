@@ -323,7 +323,7 @@ class DocumentStorage(BaseStorage):
         ``apply_batch`` (both of the port's backends do; a third-party
         backend without it gets the per-op loops).  The reference also
         takes the network backend's ``pipeline``, which comes with that
-        backend (ROADMAP queue A item 6b)."""
+        backend (ROADMAP queue A item 7)."""
         return getattr(self._db, "apply_batch", None) is not None
 
     def _db_batch(self, ops):
@@ -902,7 +902,7 @@ def create_storage(config=None):
     if db_type in ("network", "netdb"):
         raise NotImplementedError(
             f"storage type {db_type!r} is not ported yet (ROADMAP queue A "
-            "item 6b); orion_tpu_torch has 'memory', 'pickled' and 'sqlite'"
+            "item 7); orion_tpu_torch has 'memory', 'pickled' and 'sqlite'"
         )
     raise DatabaseError(f"Unknown storage type {db_type!r}")
 

@@ -1,7 +1,7 @@
 """SQLite document database — durable multi-process storage without a server
 (port of ``orion_tpu/storage/sqlitedb.py``, without its telemetry histogram,
 and with an index over the fields the worker loop filters on: see
-``_FIELD_INDEX``).  The file holds JSON documents in SQL and no class paths,
+``_FIELD_INDEXES``).  The file holds JSON documents in SQL and no class paths,
 so a file either package writes opens in the other.
 
 Fills the slot the reference covers with PickledDB (whole-file flock +
@@ -86,17 +86,34 @@ CREATE TABLE IF NOT EXISTS counters (
 #: in ``id`` order, as the reference's do).  A trial document carries its
 #: round's lineage (1024 parent ids at q=1024, ~36 KB), so a scan of 9216
 #: such trials parses ~330 MB of JSON: eight workers on one file spent
-#: their time waiting on each other's scans.  The index needs SQLite's
-#: JSON5 parsing (3.42+): Python writes non-finite floats as NaN/Infinity,
-#: which an older ``json_extract`` rejects, and there an insert computing
-#: the index would fail; older builds go without it, as the reference does.
+#: their time waiting on each other's scans.
+#:
+#: Python writes non-finite floats as the bare tokens NaN and Infinity.
+#: SQLite below 3.42 cannot parse them, so an index computing
+#: ``json_extract`` over every document made each insert or update of such
+#: a document fail there (``malformed JSON``), whichever package wrote it.
+#: Both indexes are therefore partial on ``json_valid(doc)``, which every
+#: SQLite with JSON functions answers alike (RFC 8259: false for NaN, also
+#: where JSON5 parses): the field index covers the documents that are
+#: standard JSON, and the second index lists the others in ``id`` order, so
+#: that a scan reads each part by its index and merges them by ``id``.
+#: Neither index evaluates ``json_extract`` on a document it cannot parse,
+#: so any SQLite, and the reference's code, writes to a file that has them.
+#: The nonstandard documents are narrowed by their text instead
+#: (``_text_prefilter``), so that a hunt whose objectives are often NaN
+#: does not parse all of them in every count and reservation.
 _INDEXED_FIELDS = ("experiment", "status")
-_FIELD_INDEX = (
-    "CREATE INDEX IF NOT EXISTS docs_experiment_status ON docs (collection, "
+_VALID_JSON = "json_valid(doc)"
+_FIELD_INDEXES = (
+    "CREATE INDEX IF NOT EXISTS docs_valid_experiment_status ON docs (collection, "
     + ", ".join(f"json_extract(doc, '$.{field}')" for field in _INDEXED_FIELDS)
-    + ", id)"
+    + f", id) WHERE {_VALID_JSON}",
+    "CREATE INDEX IF NOT EXISTS docs_nonstandard_json ON docs (collection, id) "
+    f"WHERE NOT {_VALID_JSON}",
 )
-FIELD_INDEX = sqlite3.sqlite_version_info >= (3, 42, 0)
+#: The full index of earlier versions of this module, dropped on open: it
+#: computed ``json_extract`` over every document.
+_LEGACY_INDEX = "docs_experiment_status"
 
 
 def _id_key(_id):
@@ -154,8 +171,9 @@ class SQLiteDB:
             conn.execute("PRAGMA journal_mode=WAL")
             conn.execute("PRAGMA synchronous=NORMAL")
             conn.executescript(_SCHEMA)
-            if FIELD_INDEX:
-                conn.execute(_FIELD_INDEX)
+            conn.execute(f"DROP INDEX IF EXISTS {_LEGACY_INDEX}")
+            for index in _FIELD_INDEXES:
+                conn.execute(index)
             self._local.conn = conn
         return conn
 
@@ -307,6 +325,39 @@ class SQLiteDB:
         return clauses, params
 
     @staticmethod
+    def _text_prefilter(query):
+        """SQL WHERE fragments that narrow the documents SQLite cannot parse
+        by their text: a top-level string condition (equality or ``$in``)
+        can only hold where the document contains the value's JSON form, so
+        ``instr`` drops the rest (another experiment's trials, a status
+        that is not asked for) without a JSON parse.  Only strings that
+        JSON writes as they are (no escapes) are pushed; ``_matches``
+        still decides."""
+        def literal(v):
+            if not isinstance(v, str):
+                return None
+            text = json.dumps(v)
+            return text if text[1:-1] == v else None
+
+        clauses, params = [], []
+        for key, qv in (query or {}).items():
+            if not key.isidentifier():
+                continue
+            values = qv["$in"] if isinstance(qv, dict) and set(qv) == {"$in"} else [qv]
+            texts = [literal(v) for v in values]
+            if texts and None not in texts:
+                clauses.append("(" + " OR ".join(["instr(doc, ?) > 0"] * len(texts)) + ")")
+                params.extend(texts)
+        return clauses, params
+
+    def _nonstandard_sql(self, select, query):
+        """``select`` over the documents that are not standard JSON, with
+        the query's text prefilter, and its parameters."""
+        clauses, params = self._text_prefilter(query)
+        sql = f"{select} FROM docs WHERE collection = ? AND NOT {_VALID_JSON}"
+        return " AND ".join([sql, *clauses]), params
+
+    @staticmethod
     def _index_arms(query):
         """``query`` as the queries whose scans, merged by id, give its rows:
         with the field index, a status ``$in`` beside an experiment becomes
@@ -316,7 +367,7 @@ class SQLiteDB:
         parsed every trial already taken, holding the write lock."""
         query = query or {}
         statuses = query.get("status")
-        if not (FIELD_INDEX and isinstance(query.get("experiment"), str)
+        if not (isinstance(query.get("experiment"), str)
                 and isinstance(statuses, dict) and set(statuses) == {"$in"}
                 and statuses["$in"] and all(isinstance(v, str) for v in statuses["$in"])):
             return [query]
@@ -337,20 +388,29 @@ class SQLiteDB:
             for (d,) in rows:
                 yield json.loads(d)
             return
-        cursors = []
-        for arm in self._index_arms(query):
-            clauses, params = self._sql_prefilter(arm)
+        arms = [self._sql_prefilter(arm) for arm in self._index_arms(query)]
+        split = any(clauses for clauses, _ in arms)
+        statements = []
+        for clauses, params in arms:
+            if split:
+                clauses = [_VALID_JSON, *clauses]
             sql = "SELECT id, doc FROM docs WHERE collection = ?"
             if clauses:
                 sql += " AND " + " AND ".join(clauses)
             # The reference's order (its one index is the primary key),
             # whichever index the planner takes.
-            sql += " ORDER BY id"
-            cursors.append(conn.execute(sql, (collection, *params)))
-        rows = cursors[0] if len(cursors) == 1 else heapq.merge(
-            *cursors, key=operator.itemgetter(0))
+            statements.append((sql + " ORDER BY id", (collection, *params)))
+        if split:
+            # The documents SQLite cannot parse, narrowed by their text;
+            # the caller's _matches decides for them.
+            sql, params = self._nonstandard_sql("SELECT id, doc", query)
+            statements.append((sql + " ORDER BY id", (collection, *params)))
         yielded = set()
         try:
+            # Inside the try: a statement runs to its first row here.
+            cursors = [conn.execute(sql, params) for sql, params in statements]
+            rows = cursors[0] if len(cursors) == 1 else heapq.merge(
+                *cursors, key=operator.itemgetter(0))
             for _, d in rows:
                 doc = json.loads(d)
                 yielded.add(_id_key(doc.get("_id")))
@@ -674,13 +734,17 @@ class SQLiteDB:
             # pushable.
             sql = (
                 "SELECT COUNT(*) FROM docs WHERE collection = ? AND "
-                + " AND ".join(clauses)
+                + " AND ".join([_VALID_JSON, *clauses])
             )
             try:
                 (n,) = conn.execute(sql, (collection, *params)).fetchone()
-                return n
             except sqlite3.OperationalError:
                 pass  # non-finite JSON token mid-scan: fall through
+            else:
+                # The documents SQLite cannot parse, narrowed by their text.
+                sql, params = self._nonstandard_sql("SELECT doc", query)
+                rest = conn.execute(sql, (collection, *params))
+                return n + sum(1 for (d,) in rest if _matches(json.loads(d), query))
         return sum(
             1
             for doc in self._scan_iter(conn, collection, query)

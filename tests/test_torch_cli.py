@@ -412,7 +412,7 @@ def test_cli_lists_only_the_ported_commands(capsys):
     from orion_tpu_torch.cli import build_parser
 
     commands = build_parser()._subparsers._group_actions[0].choices
-    assert sorted(commands) == ["hunt", "init-only", "insert", "status"]
+    assert sorted(commands) == ["audit", "hunt", "init-only", "insert", "list", "status"]
     with pytest.raises(SystemExit):
         main(["--version"])
     assert capsys.readouterr().out.startswith("orion-tpu-torch ")
@@ -424,5 +424,5 @@ def test_hunt_refuses_unported_storage_and_memory_workers(tmp_path, capsys, monk
                              "2", "--n-workers", "2", box, "-x~uniform(-5, 5)"], capsys)
     assert rc == 1 and "in-memory storage is per-process" in err
     monkeypatch.setenv("ORION_DB_TYPE", "network")
-    with pytest.raises(NotImplementedError, match="6b"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         main(["hunt", "-n", "net", "--device", "cpu", box, "-x~uniform(-5, 5)"])

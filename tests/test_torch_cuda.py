@@ -324,3 +324,40 @@ def test_cli_hunt_gp_round_launches_fused_gram_at_the_main_shape(cuda, tmp_path,
                    and "gram_kernel" in e.get("name", "")]
         assert len(kernels) == len(shapes)
         assert all(loop["ts"] <= e["ts"] <= loop["ts"] + loop["dur"] for e in kernels)
+
+
+@pytest.mark.cuda
+def test_branched_hunt_first_round_is_a_gp_round_on_the_card(cuda, tmp_path, monkeypatch):
+    """EVC on the card: ``orion-tpu-torch hunt`` resumed with ``x0``
+    narrowed to [0, 0.5] branches version 2, whose producer observes the
+    parent's completed trials inside the new prior through the EVC tree;
+    so its first round is a GP round that runs the 16384 x 256 x 6
+    cross-gram in the kernel, and every row lies in the narrowed prior."""
+    from orion_tpu_torch.cli import main
+    from orion_tpu_torch.storage.base import create_storage
+
+    db = _cli_experiment_with_history(tmp_path, n_completed=640)
+    shapes = []
+    plan = gram._launch_plan
+
+    def recording_plan(m, n, d, aligned):
+        shapes.append((m, n, d))
+        return plan(m, n, d, aligned)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(gram, "_launch_plan", recording_plan)
+    monkeypatch.setattr(gram, "fused_gram_reference", plain)
+    before = gram.fused_gram.launches
+    priors = [f"-x{i}~uniform(0, {0.5 if i == 0 else 1})" for i in range(6)]
+    assert main(["hunt", "-n", "cli", "--storage-path", db, "--pool-size", "1024",
+                 "--max-trials", "4", str(tmp_path / "box.py"), *priors]) == 0
+    assert gram.fused_gram.launches - before == len(shapes) >= 1
+    assert (16384, 256, 6) in shapes
+    storage = create_storage({"type": "sqlite", "path": db})
+    exps = {e["version"]: e for e in storage.fetch_experiments({"name": "cli"})}
+    assert exps[2]["refers"]["parent_id"] == exps[1]["_id"]
+    trials = storage.fetch_trials(uid=exps[2]["_id"])
+    assert len(trials) == 1024 and all(t.params["/x0"] <= 0.5 for t in trials)
+    assert sum(t.status == "completed" for t in trials) == 4

@@ -43,9 +43,25 @@ def _inputs(m, n, d, seed=0):
     return xa, xb, ils, np.float32(1.7)
 
 
+def _float64_gram(kind, xa, xb, ils, amp):
+    """The kernel matrix in float64 from the differences themselves (no
+    ``aa + bb - 2ab`` cancellation): a witness that neither package's
+    float32 arithmetic, nor any process-wide precision switch, can move."""
+    a = xa.astype(np.float64) * ils.astype(np.float64)
+    b = xb.astype(np.float64) * ils.astype(np.float64)
+    r2 = ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1)
+    if kind == "rbf":
+        return float(amp) * np.exp(-0.5 * r2)
+    s5 = np.sqrt(5.0 * r2)
+    return float(amp) * (1.0 + s5 + (5.0 / 3.0) * r2) * np.exp(-s5)
+
+
 @pytest.mark.parametrize("kind", ["matern52", "rbf"])
 @pytest.mark.parametrize("m,n,d", SHAPES)
 def test_fused_gram_matches_pallas_and_xla(kind, m, n, d):
+    """The port against the Pallas kernel and the XLA path, and each of the
+    three against the float64 witness first, so that a failure names the
+    side that moved."""
     xa, xb, ils, amp = _inputs(m, n, d)
     got = fused_gram(torch.from_numpy(xa), torch.from_numpy(xb), torch.from_numpy(ils),
                      torch.tensor(amp), kind=kind).numpy()
@@ -53,6 +69,10 @@ def test_fused_gram_matches_pallas_and_xla(kind, m, n, d):
                             jnp.asarray(amp), kind=kind, interpret=True)
     xla = jax_kernel_matrix(kind, jnp.asarray(xa), jnp.asarray(xb), jnp.asarray(ils),
                             jnp.asarray(amp))
+    witness = _float64_gram(kind, xa, xb, ils, amp)
+    for name, value in (("port", got), ("pallas", pallas), ("xla", xla)):
+        np.testing.assert_allclose(np.asarray(value, np.float64), witness, atol=1e-5,
+                                   err_msg=f"{name} against the float64 witness")
     np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-5)
     np.testing.assert_allclose(got, np.asarray(xla), atol=1e-5)
 

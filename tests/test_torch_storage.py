@@ -314,7 +314,7 @@ def test_retry_policy_matches_reference():
 
 def test_unported_backends_raise_not_implemented():
     for db_type in ("network", "netdb"):
-        with pytest.raises(NotImplementedError, match="6b"):
+        with pytest.raises(NotImplementedError, match="item 7"):
             create_storage({"type": db_type})
     with pytest.raises(DatabaseError):
         create_storage({"type": "nosuch"})
