@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``orion_tpu_torch``) on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--fleet-off-first]
 
 Phases, one JSON line each (any failure raises and the script exits
 non-zero; nothing is caught and passed over):
@@ -75,7 +75,31 @@ non-zero; nothing is caught and passed over):
    ``list`` prints; reports the tree fetch, suggest and GP round ms,
    trials/s and the audit ms.  Then a NaN and an infinite objective through
    the port's ``SQLiteDB`` on this host's SQLite.
-11. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+11. ``telemetry``: the telemetry plane (``telemetry.py``, ``metrics.py``,
+   ``tracing.py``, the flight recorder of ``health.py``).  (a) The main
+   path's ``tpu_bo`` (130 observed, q=1024) for 6 rounds with
+   ``TELEMETRY``/``FLIGHT`` off and 6 on, alternating, each pair drawn from
+   one copy of the algorithm: their rows must be equal; the median round ms
+   of each and their ratio, the ``suggest_step.dispatch`` spans.  (b)
+   ``orion-tpu-torch hunt --n-workers 4 --profile`` on a fresh SQLite file
+   (the ``cli`` phase's script and unseeded ``tpu_bo``, ``--pool-size
+   1024``, 2048 trials), twice: with ``telemetry: false``, and with
+   ``telemetry: true`` and a free ``metrics_port``, on first unless
+   ``--fleet-off-first`` is given.  While the telemetry run goes,
+   ``/metrics`` (Prometheus text, a growing ``storage_sqlite_txn``
+   histogram) and ``/healthz`` are scraped; then ``metrics`` (four
+   snapshots merged, completions equal to the trials run), ``trace`` (a
+   Chrome trace with ``producer.round`` on four tracks, storage spans
+   parented inside them, ``suggest_step.dispatch``), ``trace --attribute``
+   and ``flight-record``.  In each run the kernel's launches and their
+   (m, n, d) are read from the workers' profiler traces (the wrapper's
+   ``fused_gram MxNxD`` range around each launch): at least one at 16384 x
+   256 x 6.  Trials/s of both runs, beside the ``cli`` phase's eight
+   workers.  (c) A single-worker hunt with telemetry
+   on, interrupted by SIGINT: its crash dump holds ``producer.round``
+   events; ``audit --flight-out`` on a copy of (b)'s store with one
+   violation planted exits 1 and dumps an ``audit.violation`` event.
+12. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -87,6 +111,7 @@ import json
 import multiprocessing
 import os
 import queue
+import re
 import statistics
 import subprocess
 import sys
@@ -338,6 +363,8 @@ def profile_round(round_fn, device):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from orion_tpu_torch.ops.gram import PROFILE_RANGE
+
     _sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -345,10 +372,11 @@ def profile_round(round_fn, device):
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    # Device-side copies of the spans cover the gaps between their kernels:
-    # leave them out of the busy time.
+    # Device-side copies of the spans (and of ``fused_gram``'s launch range)
+    # cover the gaps between their kernels: leave them out of the busy time.
     kernels = sorted((e.time_range.start, e.time_range.end) for e in events
-                     if e.device_type == DeviceType.CUDA and not e.name.startswith("suggest."))
+                     if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith(("suggest.", PROFILE_RANGE + " ")))
     busy_us, end = 0.0, float("-inf")
     for start, stop in kernels:
         busy_us += max(0.0, stop - max(start, end))
@@ -700,6 +728,7 @@ def _hunt_worker(path, seed, rounds, q, barrier, results, device=None, algo=HUNT
     from orion_tpu_torch.core.experiment import build_experiment
     from orion_tpu_torch.ops import gram
     from orion_tpu_torch.storage.base import create_storage
+    from orion_tpu_torch.utils.exceptions import WaitingForTrials
 
     import orion_tpu_torch.device  # noqa: F401  (precision switches)
 
@@ -709,7 +738,7 @@ def _hunt_worker(path, seed, rounds, q, barrier, results, device=None, algo=HUNT
                            pool_size=q).instantiate(seed=seed, device=device)
     client = ExperimentClient(exp)
     space = exp.space
-    reserved, completed, suggest_ms, held = [], [], [], None
+    reserved, completed, suggest_ms, held, waits = [], [], [], None, 0
 
     def complete(trials):
         cube = torch.as_tensor(space.params_to_cube([t.params for t in trials]),
@@ -720,7 +749,17 @@ def _hunt_worker(path, seed, rounds, q, barrier, results, device=None, algo=HUNT
     gram.fused_gram.launches = 0
     for _ in range(rounds):
         t0 = time.perf_counter()
-        trials = client.suggest(q)
+        while True:
+            try:
+                trials = client.suggest(q)
+                break
+            except WaitingForTrials:
+                # The other worker reserved the batch this one had just
+                # registered, before this one reserved it: the client's
+                # signal to ask again, which produces a fresh batch.
+                waits += 1
+                if waits > 2 * rounds:
+                    raise
         suggest_ms.append((time.perf_counter() - t0) * 1e3)
         reserved.extend(t.id for t in trials)
         barrier.wait(timeout=300)
@@ -729,7 +768,8 @@ def _hunt_worker(path, seed, rounds, q, barrier, results, device=None, algo=HUNT
         held = trials
     complete(held)
     results.put({"seed": seed, "reserved": reserved, "completed": completed,
-                 "suggest_ms": suggest_ms, "fused_gram_launches": gram.fused_gram.launches,
+                 "suggest_ms": suggest_ms, "waits": waits,
+                 "fused_gram_launches": gram.fused_gram.launches,
                  "observed": exp.algorithm.n_observed})
 
 
@@ -778,8 +818,9 @@ def run_workers(tmp_dir, q=Q, rounds=WORKER_ROUNDS, workers=WORKERS, device=None
     out = {"workers": workers, "q": q, "rounds_each": rounds, "trials": len(ids),
            "lies": len(storage.fetch_lies(exp_id)), "wall_s": wall_s,
            "fused_gram_launches": sum(r["fused_gram_launches"] for r in out),
-           "per_worker": [{k: r[k] for k in ("seed", "suggest_ms", "fused_gram_launches",
-                                             "observed")} for r in out],
+           "per_worker": [{k: r[k] for k in ("seed", "suggest_ms", "waits",
+                                             "fused_gram_launches", "observed")}
+                          for r in out],
            "reserved": len(reserved), "reserved_distinct": len(set(reserved)),
            "completed": len(completed), "completed_distinct": len(set(completed)),
            "statuses": sorted({t.status for t in trials})}
@@ -1029,16 +1070,27 @@ def run_cli_hunt(tmp, device, q=CLI_Q, max_trials=CLI_TRIALS, algo=CLI_ALGO):
 
 
 def read_worker_trace(path):
-    """From one ``hunt --profile`` trace: the ``gram.cu`` kernel's launches,
-    every kernel's count, the device's busy ms (the union of the kernel
-    intervals) and its idle share over the worker's loop (the host-side
-    ``hunt.workon`` span)."""
+    """From one ``hunt --profile`` trace: the ``gram.cu`` kernel's launches
+    and the (m, n, d) of each, read from the profiler range the wrapper
+    opens around every launch (``"fused_gram MxNxD"``), every kernel's
+    count, the device's busy ms (the union of the kernel intervals) and its
+    idle share over the worker's loop (the host-side ``hunt.workon``
+    span).  Raises unless every kernel launch has its range."""
+    from orion_tpu_torch.ops.gram import PROFILE_RANGE
+
     with open(path) as handle:
         events = json.load(handle)["traceEvents"]
     kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                      if e.get("cat") == "kernel")
     gram_launches = sum(1 for e in events
                         if e.get("cat") == "kernel" and GRAM_KERNEL in e.get("name", ""))
+    shapes = collections.Counter(
+        e["name"][len(PROFILE_RANGE) + 1:] for e in events
+        if e.get("cat") == "user_annotation"
+        and e.get("name", "").startswith(PROFILE_RANGE + " "))
+    if sum(shapes.values()) != gram_launches:
+        raise AssertionError(f"{path}: {gram_launches} {GRAM_KERNEL} launches, "
+                             f"{sum(shapes.values())} {PROFILE_RANGE} ranges {dict(shapes)}")
     loops = [e for e in events
              if e.get("name") == "hunt.workon" and e.get("cat") == "user_annotation"]
     if len(loops) != 1:
@@ -1048,7 +1100,8 @@ def read_worker_trace(path):
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
     loop_ms = loops[0]["dur"] / 1e3
-    return {"fused_gram_launches": gram_launches, "kernels": len(kernels),
+    return {"fused_gram_launches": gram_launches, "launch_shapes": dict(shapes),
+            "kernels": len(kernels),
             "loop_ms": loop_ms, "device_busy_ms": busy_us / 1e3,
             "idle_share": 1.0 - busy_us / 1e3 / loop_ms}
 
@@ -1207,7 +1260,7 @@ def phase_cli(device, tmp):
     """The CLI worker path: one worker in process, ``CLI_WORKERS`` workers as
     a subprocess, the regret gate through the CLI.  The one-worker hunt's
     store stays in ``tmp`` for the ``evc`` phase.  Returns ``fused_gram``'s
-    launches in each run."""
+    launches in each run and the eight workers' trials/s."""
     one = run_cli_hunt(tmp, device)
     emit("cli", run="hunt", storage="sqlite", q=CLI_Q,
          interpreter_start_ms=interpreter_start_ms(), **one)
@@ -1220,8 +1273,8 @@ def phase_cli(device, tmp):
     if not verdict["pass"]:
         raise AssertionError("regret gate through the CLI failed against "
                              "BENCH_REGRET_BASELINE.json")
-    return {"hunt": one["fused_gram_launches"], "workers": many["fused_gram_launches"],
-            "regret": regret_launches}
+    return ({"hunt": one["fused_gram_launches"], "workers": many["fused_gram_launches"],
+             "regret": regret_launches}, many["trials_per_s"])
 
 
 #: The ``evc`` phase: the ``cli`` phase's one-worker hunt (v1) resumed twice
@@ -1387,6 +1440,389 @@ def phase_evc(device, tmp):
     return sum(g["fused_gram_launches"] for g in chain["generations"])
 
 
+#: The ``telemetry`` phase: (a) main-path rounds with the registry off and
+#: on, alternating; (b) a four-worker CLI hunt with ``telemetry: true`` and
+#: a ``/metrics`` port; (c) the flight recorder's dumps.
+TELEMETRY_ROUNDS = 6
+TELEMETRY_WORKERS = 4
+TELEMETRY_TRIALS = 2048
+PROM_LINE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*",?)*\})? '
+    r'(-?[0-9.eE+-]+|\+Inf|-Inf|NaN)$')
+
+
+def run_telemetry_cost(device, q=Q, rounds=TELEMETRY_ROUNDS):
+    """The main path's ``tpu_bo`` (130 observed, q=1024) for ``2 * rounds``
+    rounds, one of each pair with ``TELEMETRY``/``FLIGHT`` off, the other on,
+    alternating which goes first: both draw from one copy of the algorithm
+    (its generator state included), so their rows must be equal.  Returns
+    the median round ms of each, their ratio, the ``suggest_step.dispatch``
+    spans, and the kernel's launches over the rounds."""
+    import copy
+
+    from orion_tpu_torch.health import FLIGHT
+    from orion_tpu_torch.ops.gram import fused_gram
+    from orion_tpu_torch.telemetry import TELEMETRY
+
+    rng = np.random.default_rng(1)
+    algo = _make_algo(1, device)
+    x = rng.uniform(size=(N_HISTORY, 6)).astype(np.float32)
+    _observe(algo, x, _hartmann6(x))
+    algo.suggest(q)  # warm-up
+    TELEMETRY.reset()
+    FLIGHT.clear()
+    times = {"off": [], "on": []}
+    fused_gram.launches = 0
+    try:
+        for k in range(rounds):
+            xn = rng.uniform(size=(16, 6)).astype(np.float32)
+            _observe(algo, xn, _hartmann6(xn))
+            twin = copy.deepcopy(algo)
+            rows = {}
+            for mode in (("off", "on") if k % 2 == 0 else ("on", "off")):
+                target = algo if mode == "off" else twin
+                if mode == "on":
+                    TELEMETRY.enable()
+                    FLIGHT.enable()
+                _sync(device)
+                t0 = time.perf_counter()
+                rows[mode] = target.suggest_batch(q).cube
+                _sync(device)
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+                TELEMETRY.disable()
+                FLIGHT.disable()
+            if not np.array_equal(rows["off"], rows["on"]):
+                raise AssertionError(f"telemetry: round {k} rows differ with telemetry on "
+                                     f"({int((rows['off'] != rows['on']).any(1).sum())} rows)")
+    finally:
+        TELEMETRY.disable()
+        FLIGHT.disable()
+    launches = fused_gram.launches
+    spans = [s for s in TELEMETRY.iter_spans() if s["name"] == "suggest_step.dispatch"]
+    TELEMETRY.reset()
+    if len(spans) != rounds or launches < 2 * rounds:
+        raise AssertionError(f"telemetry: {len(spans)} dispatch spans over {rounds} rounds on, "
+                             f"fused_gram launched {launches} times in {2 * rounds} rounds")
+    off, on = statistics.median(times["off"]), statistics.median(times["on"])
+    return {"q": q, "rounds_each": rounds, "round_ms": times, "median_round_ms_off": off,
+            "median_round_ms_on": on, "on_over_off": on / off, "rows_equal": True,
+            "dispatch_spans": len(spans),
+            "median_dispatch_ms": statistics.median(s["dur"] * 1e3 for s in spans),
+            "dispatch_args": spans[0].get("args"), "fused_gram_launches": launches}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http_get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=5) as resp:
+        return resp.status, resp.headers.get("Content-Type"), resp.read().decode()
+
+
+def parse_exposition(text):
+    """Prometheus text exposition (0.0.4) -> ``{sample name with labels:
+    value}``; raises on a line that is neither a ``# TYPE`` line nor a
+    sample."""
+    samples = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            if len(line.split()) != 4:
+                raise AssertionError(f"bad TYPE line {line!r}")
+            continue
+        if not PROM_LINE.match(line):
+            raise AssertionError(f"not Prometheus text: {line!r}")
+        name, value = line.rsplit(" ", 1)
+        samples[name] = float(value)
+    return samples
+
+
+def _scrape(port, until, period=2.0):
+    """Scrape ``/metrics`` and ``/healthz`` every ``period`` s while
+    ``until()`` is false; a refused connection (the worker's server not up
+    yet) is skipped.  Returns ``(t, txn count, samples, healthz)`` per
+    scrape."""
+    scrapes = []
+    t0 = time.perf_counter()
+    while not until():
+        try:
+            status, ctype, text = _http_get(port, "/metrics")
+            hstatus, _, health = _http_get(port, "/healthz")
+        except OSError:
+            time.sleep(0.2)
+            continue
+        if status != 200 or hstatus != 200 or "version=0.0.4" not in (ctype or ""):
+            raise AssertionError(f"telemetry: /metrics {status} {ctype}, /healthz {hstatus}")
+        samples = parse_exposition(text)
+        scrapes.append((time.perf_counter() - t0,
+                        samples.get("orion_tpu_storage_sqlite_txn_seconds_count", 0.0),
+                        len(samples), json.loads(health)))
+        time.sleep(period)
+    return scrapes
+
+
+def run_fleet(tmp, device, telemetry, workers=TELEMETRY_WORKERS, max_trials=TELEMETRY_TRIALS,
+              q=CLI_Q, algo=CLI_ALGO, timeout=400):
+    """``hunt --n-workers 4 --profile`` on a fresh SQLite file with
+    ``telemetry:`` on or off in the config; on, with a free
+    ``metrics_port`` that is scraped while the hunt runs.  Checks the
+    trials, and reads ``fused_gram``'s launches and their shapes from the
+    workers' traces: at least one at ``MAIN_SHAPE``."""
+    import threading
+
+    import yaml
+
+    from orion_tpu_torch.storage.base import create_storage
+
+    run_dir = os.path.join(tmp, "telemetry" if telemetry else "telemetry-off")
+    os.makedirs(run_dir)
+    unseeded = {k: v for k, v in algo.items() if k != "seed"}
+    script, _ = write_cli_files(run_dir, unseeded)
+    port = _free_port() if telemetry else None
+    config = os.path.join(run_dir, "telemetry.yaml")
+    with open(config, "w") as handle:
+        yaml.safe_dump({"telemetry": telemetry, "algorithms": {"tpu_bo": unseeded},
+                        **({"metrics_port": port} if telemetry else {})}, handle)
+    db, prof = os.path.join(run_dir, "telemetry.sqlite"), os.path.join(run_dir, "profile")
+    done_event, result = threading.Event(), {}
+
+    def hunt():
+        try:
+            result["wall_s"] = run_cohort([(_cli_command(
+                "-n", "tel", "-c", config, "--storage-path", db, "--pool-size", str(q),
+                "--max-trials", str(max_trials), "--n-workers", str(workers), "--profile", prof,
+                "--device", device.type, script, *CLI_PRIORS), run_dir)], timeout)
+        except BaseException as exc:  # re-raised below, in the phase's thread
+            result["error"] = exc
+        finally:
+            done_event.set()
+
+    thread = threading.Thread(target=hunt)
+    thread.start()
+    scrapes = _scrape(port, done_event.is_set) if telemetry else []
+    thread.join()
+    if "error" in result:
+        raise result["error"]
+    storage = create_storage({"type": "sqlite", "path": db})
+    exp_id, trials = _fetch_trials(storage, "tel")
+    done, values, err = check_cli_trials(f"telemetry fleet ({'on' if telemetry else 'off'})",
+                                         trials, max_trials, device)
+    per_worker = read_traces(prof)
+    shapes = collections.Counter()
+    for w in per_worker:
+        shapes.update(w["launch_shapes"])
+    main = "x".join(map(str, MAIN_SHAPE))
+    if len(per_worker) != workers or shapes[main] < 1:
+        raise AssertionError(f"telemetry fleet: {len(per_worker)} traces, fused_gram launched "
+                             f"at {dict(shapes)} (none at {main})")
+    return {"telemetry": telemetry, "db": db, "storage": storage, "exp_id": exp_id,
+            "trials": trials, "done": done, "values": values, "err": err,
+            "wall_s": result["wall_s"], "scrapes": scrapes, "per_worker": per_worker,
+            "launches": sum(w["fused_gram_launches"] for w in per_worker),
+            "launch_shapes": dict(shapes), "unseeded": unseeded, "run_dir": run_dir}
+
+
+def run_telemetry_fleet(tmp, device, off_first=False, workers=TELEMETRY_WORKERS,
+                        max_trials=TELEMETRY_TRIALS):
+    """:func:`run_fleet` with telemetry off and on, in the order
+    ``off_first`` says; then over the telemetry run's store, ``metrics``,
+    ``trace`` (Chrome and ``--attribute``) and ``flight-record``, each
+    checked."""
+    from orion_tpu_torch.algo.gp.kernels import _FUSED_MIN_WORK
+    from orion_tpu_torch.storage.base import DocumentStorage
+
+    runs = {}
+    for telemetry in ((False, True) if off_first else (True, False)):
+        runs[telemetry] = run_fleet(tmp, device, telemetry, workers, max_trials)
+    on, off = runs[True], runs[False]
+    scrapes, run_dir, storage, exp_id = on["scrapes"], on["run_dir"], on["storage"], on["exp_id"]
+    done = on["done"]
+    cmd = ["--storage-path", on["db"], "-n", "tel"]
+
+    rc, body, metrics_ms = _cli_output(["metrics", *cmd])
+    merged = parse_exposition(body)
+    docs = storage.fetch_metrics(exp_id)
+    completions = merged.get("orion_tpu_storage_sqlite_update_completed_trial_seconds_count")
+    reserves = merged.get("orion_tpu_storage_sqlite_reserve_trial_seconds_count", 0.0)
+    if rc != 0 or len(docs) != workers or completions != len(done) or reserves < len(done):
+        raise AssertionError(f"telemetry: metrics exited {rc} over {len(docs)} snapshots, "
+                             f"{completions} completions and {reserves} reservations for "
+                             f"{len(done)} completed trials")
+
+    chrome = os.path.join(run_dir, "trace.json")
+    rc, out, trace_ms = _cli_output(["trace", *cmd, "--out", chrome])
+    with open(chrome) as handle:
+        events = json.load(handle)["traceEvents"]
+    spans = storage.fetch_spans(exp_id)
+    rounds = [e for e in events if e.get("name") == "producer.round" and e.get("ph") == "X"]
+    round_ids = {s["span_id"] for s in spans if s["name"] == "producer.round"}
+    nested = [s for s in spans if s["name"].startswith("storage.")
+              and s.get("parent_span_id") in round_ids]
+    contained = sum(
+        1 for e in events if e.get("ph") == "X" and e["name"].startswith("storage.")
+        and any(r["pid"] == e["pid"] and r["ts"] <= e["ts"]
+                and e["ts"] + e["dur"] <= r["ts"] + r["dur"] for r in rounds))
+    dispatch = [s for s in spans if s["name"] == "suggest_step.dispatch"]
+    if (rc != 0 or len({e["pid"] for e in rounds}) != workers or not nested or not contained
+            or not dispatch):
+        raise AssertionError(f"telemetry: trace exited {rc}: producer.round on "
+                             f"{len({e['pid'] for e in rounds})} pids, {len(nested)} storage "
+                             f"spans parented in a round ({contained} contained), "
+                             f"{len(dispatch)} suggest_step.dispatch")
+    rc, table, _ = _cli_output(["trace", *cmd, "--out", os.path.join(run_dir, "t2.json"),
+                                "--attribute"])
+    if rc != 0 or "producer.round" not in table or "mean of" not in table:
+        raise AssertionError(f"telemetry: trace --attribute exited {rc}:\n{table}")
+
+    flight = os.path.join(run_dir, "flight.jsonl")
+    rc, _, _ = _cli_output(["flight-record", *cmd, "--out", flight])
+    with open(flight) as handle:
+        lines = [json.loads(line) for line in handle]
+    kinds = collections.Counter(e.get("kind") for e in lines[1:])
+    if rc != 0 or lines[0].get("type") != "flight-record" or not kinds["producer.round"]:
+        raise AssertionError(f"telemetry: flight-record exited {rc}, events {dict(kinds)}")
+
+    # The pool's cross-gram is n_candidates x (rows of the GP's buffer) x d:
+    # the dispatch span's ``n`` names the buffer, and each GP round whose
+    # work reaches the fused route launches the kernel once.
+    d = MAIN_SHAPE[2]
+    fused = [s for s in dispatch
+             if on["unseeded"]["n_candidates"] * s["args"]["n"] * d >= _FUSED_MIN_WORK]
+    # Below the cap nothing was pruned, so every GP round's span is here.
+    pruned = len(spans) >= int(DocumentStorage.SPANS_CAP * 0.9)
+    launches = on["launches"]
+    if launches < len(fused) or (not pruned and launches != len(fused)):
+        raise AssertionError(f"telemetry: fused_gram launched {launches} times in the traces "
+                             f"({on['launch_shapes']}), {len(fused)} GP rounds on the fused "
+                             "route by their dispatch spans")
+    names = collections.Counter(s["name"] for s in spans)
+
+    def rate(run):
+        return len(run["done"]) / run["wall_s"]
+
+    return {
+        "workers": workers, "q": CLI_Q, "trials": len(on["trials"]), "completed": len(done),
+        "order": ["off", "on"] if off_first else ["on", "off"],
+        "wall_s": on["wall_s"], "trials_per_s": rate(on),
+        "off": {"trials": len(off["trials"]), "completed": len(off["done"]),
+                "wall_s": off["wall_s"], "trials_per_s": rate(off),
+                "regret": float(off["values"].min()) - GLOBAL_MIN,
+                "fused_gram_launches": off["launches"], "launch_shapes": off["launch_shapes"],
+                "per_worker": off["per_worker"]},
+        "on_over_off_trials_per_s": rate(on) / rate(off),
+        "regret": float(on["values"].min()) - GLOBAL_MIN, "objective_max_abs_err": on["err"],
+        "scrapes": [{"t_s": t, "sqlite_txn_count": c, "samples": n} for t, c, n, _ in scrapes],
+        "merged_snapshots": len(docs), "completions": completions, "reservations": reserves,
+        "metrics_ms": metrics_ms, "trace_ms": trace_ms,
+        "stored_spans": len(spans), "pruned": pruned, "spans_by_name": dict(names.most_common(12)),
+        "round_pids": len({e["pid"] for e in rounds}), "storage_spans_in_rounds": len(nested),
+        "dispatch_spans": len(dispatch), "dispatch_n": sorted({s["args"]["n"] for s in dispatch}),
+        "dispatch_fused_rounds": len(fused),
+        "flight_events": dict(kinds),
+        "merged": {k: merged[k] for k in sorted(merged) if k.endswith(("_total", "_count"))},
+        "fused_gram_launches": launches,
+        "launch_shapes": on["launch_shapes"],
+        "per_worker": on["per_worker"],
+    }
+
+
+def run_telemetry_dumps(tmp, device, fleet_db, algo=CLI_ALGO, timeout=120):
+    """A single-worker ``hunt`` with ``telemetry: true`` interrupted by
+    SIGINT mid-run must leave ``flight-<name>-<pid>.jsonl`` holding
+    ``producer.round`` events; ``audit --flight-out`` on a copy of the
+    fleet's store with one completed trial's results removed must exit 1
+    and write a dump holding an ``audit.violation`` event."""
+    import signal
+    import sqlite3
+
+    import yaml
+
+    from orion_tpu_torch.storage.base import create_storage
+
+    run_dir = os.path.join(tmp, "sigint")
+    os.makedirs(run_dir)
+    script, _ = write_cli_files(run_dir, algo)
+    config = os.path.join(run_dir, "sigint.yaml")
+    with open(config, "w") as handle:
+        yaml.safe_dump({"telemetry": True, "algorithms": {"tpu_bo": dict(algo)}}, handle)
+    db = os.path.join(run_dir, "sigint.sqlite")
+    proc = subprocess.Popen(_cli_command(
+        "-n", "sig", "-c", config, "--storage-path", db, "--pool-size", "64",
+        "--max-trials", "100000", "--device", device.type, script, *CLI_PRIORS),
+        env=dict(os.environ, PYTHONPATH=ROOT), cwd=run_dir, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    t0 = time.perf_counter()
+    try:
+        completed = 0
+        while completed < 80:
+            if proc.poll() is not None or time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"telemetry: the interrupted hunt ended early "
+                                     f"({proc.poll()}) or never ran 80 trials")
+            time.sleep(0.5)
+            if os.path.exists(db):
+                completed = create_storage({"type": "sqlite", "path": db}).db.count(
+                    "trials", {"status": "completed"})
+        os.kill(proc.pid, signal.SIGINT)
+        _, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    dump = os.path.join(run_dir, f"flight-sig-{proc.pid}.jsonl")
+    if not os.path.exists(dump):
+        raise AssertionError(f"telemetry: no crash dump after SIGINT (exit {proc.returncode}): "
+                             f"{err[-2000:]}")
+    with open(dump) as handle:
+        crash = [json.loads(line) for line in handle]
+    crash_kinds = collections.Counter(e.get("kind") for e in crash[1:])
+    if crash[0].get("reason") != "crash" or not crash_kinds["producer.round"]:
+        raise AssertionError(f"telemetry: crash dump {crash[0]} with {dict(crash_kinds)}")
+
+    copy_db = os.path.join(run_dir, "audit-copy.sqlite")
+    src, dst = sqlite3.connect(fleet_db), sqlite3.connect(copy_db)
+    src.backup(dst)
+    src.close()
+    dst.close()
+    storage = create_storage({"type": "sqlite", "path": copy_db})
+    [exp] = storage.fetch_experiments({"name": "tel"})
+    victim = storage.db.read("trials", {"experiment": exp["_id"], "status": "completed"})[0]
+    storage.db.write("trials", {"results": []}, query={"_id": victim["_id"]})
+    flight = os.path.join(run_dir, "audit-flight.jsonl")
+    rc, report, audit_ms = _cli_output(["audit", "-n", "tel", "--storage-path", copy_db,
+                                        "--flight-out", flight])
+    with open(flight) as handle:
+        audit_lines = [json.loads(line) for line in handle]
+    violations = [e for e in audit_lines[1:] if e.get("kind") == "audit.violation"]
+    if rc == 0 or audit_lines[0].get("reason") != "audit-failure" or not violations:
+        raise AssertionError(f"telemetry: audit --flight-out exited {rc}, "
+                             f"{len(violations)} violation events:\n{report}")
+    return {"sigint": {"exit_code": proc.returncode, "completed_before": completed,
+                       "dump_events": dict(crash_kinds)},
+            "audit": {"exit_code": rc, "ms": audit_ms, "violations": len(violations),
+                      "first": violations[0]["args"]}}
+
+
+def phase_telemetry(device, tmp, cli_workers_trials_per_s, fleet_off_first=False):
+    """The telemetry plane: its cost on the main path, a four-worker hunt
+    with it off and on, and its dumps.  Returns ``fused_gram``'s
+    launches."""
+    cost = run_telemetry_cost(device)
+    emit("telemetry", run="cost", **cost)
+    fleet = run_telemetry_fleet(tmp, device, off_first=fleet_off_first)
+    emit("telemetry", run="fleet", storage="sqlite",
+         cli_eight_workers_trials_per_s=cli_workers_trials_per_s, **fleet)
+    dumps = run_telemetry_dumps(tmp, device, os.path.join(tmp, "telemetry", "telemetry.sqlite"))
+    emit("telemetry", run="dumps", **dumps)
+    return {"cost": cost["fused_gram_launches"], "fleet": fleet["fused_gram_launches"],
+            "fleet_off": fleet["off"]["fused_gram_launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1411,8 +1847,11 @@ def main():
     asha_bo_launches = run("algorithms", phase_algorithms, device)
     hunt_launches = run("hunt", phase_hunt, device, plain_round_ms)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        cli_launches = run("cli", phase_cli, device, tmp)
+        cli_launches, cli_workers_trials_per_s = run("cli", phase_cli, device, tmp)
         evc_launches = run("evc", phase_evc, device, tmp)
+        telemetry_launches = run("telemetry", phase_telemetry, device, tmp,
+                                 cli_workers_trials_per_s,
+                                 fleet_off_first="--fleet-off-first" in sys.argv[1:])
     emit("seconds", **seconds)
 
     def case(shape):
@@ -1426,10 +1865,13 @@ def main():
         "source": "orion_tpu_torch/ops/csrc/gram.cu",
         "replaces": "orion_tpu/ops/gram.py:68",
         "launches": (launches["fused_gram"] + asha_bo_launches + hunt_launches
-                     + sum(cli_launches.values()) + evc_launches),
+                     + sum(cli_launches.values()) + evc_launches
+                     + sum(telemetry_launches.values())),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
                              "hunt": hunt_launches, "cli": sum(cli_launches.values()),
-                             "cli_runs": cli_launches, "evc": evc_launches},
+                             "cli_runs": cli_launches, "evc": evc_launches,
+                             "telemetry": sum(telemetry_launches.values()),
+                             "telemetry_runs": telemetry_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -7,7 +7,9 @@ fidelity, with the fidelity as one extra input column
 s = log(fid/low) / log(high/low) in [0, 1]; candidates are scored at s = 1
 (``fixed_tail_cols=1``), so points are picked by their predicted
 full-budget value.  A model round is the port's GP-BO step
-(:func:`orion_tpu_torch.algo.tpu_bo._suggest_step`); at the
+(:func:`orion_tpu_torch.algo.tpu_bo._suggest_step`, through
+:func:`~orion_tpu_torch.algo.tpu_bo.dispatch_suggest_step` and its
+``suggest_step.dispatch`` span); at the
 ``asha_bo-ackley50`` preset its EI ranking runs the ``fused_gram`` kernel on
 the 8192 x 512 x 51 cross-gram.
 
@@ -32,7 +34,11 @@ from orion_tpu_torch.algo.base import algo_registry
 from orion_tpu_torch.algo.gp.gp import init_hypers
 from orion_tpu_torch.algo.history import DeviceHistory, HostHistory, _next_pow2
 from orion_tpu_torch.algo.sampling import clamp_objectives
-from orion_tpu_torch.algo.tpu_bo import _suggest_step, sample_suggest_draws, tr_update_batch
+from orion_tpu_torch.algo.tpu_bo import (
+    dispatch_suggest_step,
+    sample_suggest_draws,
+    tr_update_batch,
+)
 
 
 @algo_registry.register("asha_bo")
@@ -285,7 +291,7 @@ class ASHABO(ASHA):
                 trust_region=self.trust_region, tr_perturb_dims=self.tr_perturb_dims,
                 device=self.device,
             )
-        rows, state = _suggest_step(draws, *inputs, **kw)
+        rows, state = dispatch_suggest_step(num, draws, *inputs, **kw)
         self._gp_state = state
         return rows[:num]
 

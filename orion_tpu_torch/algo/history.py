@@ -18,12 +18,18 @@ Copy-on-write: ``__deepcopy__`` hands the clone the same buffers and marks
 both sides; the next append on either side first copies the buffers, so
 the other side's rows survive.  An algorithm that is never cloned appends
 in place (``copy_`` into a slice) on every observe.
+
+Telemetry: each device append counts ``history.appends.donated`` when it
+wrote into the resident buffers and ``history.appends.copied`` when it
+rebuilt them first (growth or copy-on-write) — the reference's names for
+an append that aliased its donated buffers or paid an O(capacity) copy.
 """
 
 import numpy as np
 import torch
 
 from orion_tpu_torch.device import resolve_device
+from orion_tpu_torch.telemetry import TELEMETRY
 
 
 def _next_pow2(n, floor=64):
@@ -91,10 +97,11 @@ class DeviceHistory:
 
     def _own_with_capacity(self, need):
         """Exclusively-owned buffers covering ``need`` rows (grow and/or
-        copy-on-write in one copy)."""
+        copy-on-write in one copy).  Returns whether the buffers were
+        rebuilt."""
         new_cap = max(_next_pow2(need, floor=self.floor), self.cap)
         if new_cap == self.cap and not self._cow:
-            return
+            return False
         x = torch.zeros((new_cap, self.n_cols), dtype=torch.float32, device=self.device)
         y = torch.zeros((new_cap,), dtype=torch.float32, device=self.device)
         mask = torch.zeros((new_cap,), dtype=torch.float32, device=self.device)
@@ -105,6 +112,7 @@ class DeviceHistory:
         self._x, self._y, self._mask = x, y, mask
         self.cap = new_cap
         self._cow = False
+        return True
 
     def append(self, rows, ys):
         """Write an observe batch at ``count``: one upload of the new rows,
@@ -114,7 +122,11 @@ class DeviceHistory:
         b = rows.shape[0]
         if b == 0:
             return
-        self._own_with_capacity(self.count + b)
+        copied = self._own_with_capacity(self.count + b)
+        # Constant names, one enabled check — hot-path clean.
+        TELEMETRY.count(
+            "history.appends.copied" if copied else "history.appends.donated"
+        )
         end = self.count + b
         self._x[self.count:end].copy_(torch.from_numpy(rows))
         self._y[self.count:end].copy_(torch.from_numpy(ys))

@@ -18,12 +18,21 @@ Each stage of a round runs inside a ``torch.profiler.record_function`` span
 named ``suggest.<stage>`` (draws, fit_gp, candidates, polish, acquire,
 ei_rank, select), so a profiled round reads as its own breakdown.
 
+Telemetry (:func:`dispatch_suggest_step`, also ``asha_bo``'s entry): with
+the registry on, each round books one ``suggest_step.dispatch`` span with
+``{"q", "n"}`` args — the host's cost of dispatching the step, as the
+reference's ``jax.suggest_step.dispatch``.  Eager PyTorch has no trace
+cache, so there is no ``jax.suggest_step.compile`` span and no
+``jax.retraces`` counter; their counterpart comes with the compiler plane
+(ROADMAP queue A item 6).
+
 Not ported yet: the fused-plan and serve-coalescing machinery (``FusedPlan``,
 ``make_fused_plan``, ``run_fused_plan``, ``PlanPrepToken``), the jit prewarmer
 (``prewarm`` is accepted and has no effect) and the device mesh
 (``use_mesh=True`` raises ``NotImplementedError``).
 """
 
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -48,6 +57,7 @@ from orion_tpu_torch.algo.gp.gp import (
 )
 from orion_tpu_torch.algo.history import DeviceHistory, HostHistory, _next_pow2
 from orion_tpu_torch.algo.sampling import clamp_objectives, reflect_unit
+from orion_tpu_torch.telemetry import TELEMETRY
 
 #: Random Fourier features of the Thompson acquisition.
 N_FEATURES = 512
@@ -414,6 +424,23 @@ def _suggest_step(draws, x, y, mask, best_x, warm_hypers, tr_length=None, *, q,
         return free_candidates[final_idx], state
 
 
+def dispatch_suggest_step(num, draws, x, *args, **kwargs):
+    """:func:`_suggest_step` for ``num`` requested rows, booked as one
+    ``suggest_step.dispatch`` span (``{"q": num, "n": rows of x}``) when
+    telemetry is on.  No device sync inside the span: like the reference's
+    dispatch span it measures the host's cost of issuing the step, and a
+    sync would change the round it observes."""
+    t0 = time.perf_counter() if TELEMETRY.enabled else None
+    out = _suggest_step(draws, x, *args, **kwargs)
+    if t0 is not None:
+        TELEMETRY.record_span(
+            "suggest_step.dispatch",
+            start=t0,
+            args={"q": int(num), "n": int(x.shape[0])},
+        )
+    return out
+
+
 @algo_registry.register("tpu_bo")
 class TPUBO(BaseAlgorithm):
     """Batched GP-BO on the card; the constructor takes the reference's
@@ -622,8 +649,8 @@ class TPUBO(BaseAlgorithm):
                 device=self.device,
             )
         tr = torch.tensor(self._tr_length, dtype=torch.float32, device=self.device)
-        rows, state = _suggest_step(
-            draws, x_dev, y_dev, mask_dev, best_x, hypers, tr, q=q, fit_steps=steps,
+        rows, state = dispatch_suggest_step(
+            num, draws, x_dev, y_dev, mask_dev, best_x, hypers, tr, q=q, fit_steps=steps,
             **step_kw,
         )
         self._gp_state = state

@@ -1,6 +1,8 @@
 """Shared CLI argument groups and experiment bootstrapping (port of
 ``orion_tpu/cli/base.py``; the ``--all`` fleet helpers wait for the commands
-that use them).
+that use them, ROADMAP queue A item 7).  ``load_cli_config`` layers the
+``telemetry:`` and ``metrics_port:`` keys onto the process, as the
+reference does.
 
 Capability parity: reference `src/orion/core/cli/base.py` — the common
 ``-n/--name``, ``--version``, ``-c/--config``, ``--debug`` group plus the
@@ -105,9 +107,33 @@ def load_cli_config(args):
             "type": _storage_type_for_path(args.storage_path),
             "path": args.storage_path,
         }
-    # resolve_config raises for the telemetry keys (`telemetry:`,
-    # `metrics_port:`, `doctor_interval:`): the port has no telemetry plane.
-    return resolve_config(file_config, cmd_config, storage_override)
+    # resolve_config raises for `doctor_interval:` (the diagnosis watchdog,
+    # ROADMAP queue A item 9).
+    config = resolve_config(file_config, cmd_config, storage_override)
+    # `telemetry:` in any config layer flips the process-wide registry AND
+    # the flight recorder (one switch for the whole observability layer); a
+    # None (unset) leaves whatever ORION_TPU_TELEMETRY / ORION_TPU_FLIGHT
+    # decided at import.
+    if config.get("telemetry") is not None:
+        from orion_tpu_torch.health import FLIGHT
+        from orion_tpu_torch.telemetry import TELEMETRY
+
+        if config["telemetry"]:
+            TELEMETRY.enable()
+            FLIGHT.enable()
+        else:
+            TELEMETRY.disable()
+            FLIGHT.disable()
+    # `metrics_port:` requests the worker-side /metrics + /healthz daemon
+    # (orion_tpu_torch.metrics).  Resolved to the env spelling here (so
+    # `hunt --n-workers` children inherit it too) and STARTED only where a
+    # worker loop actually runs (workon) — read-only commands must not bind
+    # the port just because the config names it.
+    if config.get("metrics_port") is not None:
+        os.environ.setdefault(
+            "ORION_TPU_METRICS_PORT", str(int(config["metrics_port"]))
+        )
+    return config
 
 
 def _default_user():

@@ -8,8 +8,10 @@ line**, with the worker knobs (`heartbeat`, `max_broken`, `max_idle_time`)
 and storage selection (`ORION_DB_TYPE` / `ORION_DB_ADDRESS` env overrides)
 of the reference's global Configuration object.
 
-The port has no telemetry plane yet (ROADMAP queue A item 5): a non-null
-``telemetry``, ``metrics_port`` or ``doctor_interval`` in any layer raises
+``telemetry`` and ``metrics_port`` resolve as in the reference (the CLI
+layers them onto the process, ``cli/base.py``).  ``doctor_interval`` starts
+the reference's diagnosis watchdog, which is not ported yet (ROADMAP queue
+A item 9): a non-null value in any layer raises
 :class:`NotImplementedError` rather than being ignored.
 """
 
@@ -101,11 +103,17 @@ DEFAULTS = {
     # the ORION_DB_SHARDS env var) resolves here as it does there and is
     # refused by create_storage until it is ported (ROADMAP queue A item 7).
     "storage": {"type": "pickled", "path": "orion_tpu_db.pkl", "retry": {}},
-    # The reference's telemetry switch, worker metrics port and diagnosis
-    # interval: the port has no telemetry plane yet, so resolve_config
-    # raises when any layer sets one (ROADMAP queue A item 5).
+    # Framework telemetry (orion_tpu_torch.telemetry): None = leave the
+    # ORION_TPU_TELEMETRY env decision alone; true/false switches the
+    # registry and the flight recorder together (cli/base.py).
     "telemetry": None,
+    # Worker /metrics + /healthz port (orion_tpu_torch.metrics); None = no
+    # server.  Resolved to ORION_TPU_METRICS_PORT so that `hunt
+    # --n-workers` children inherit it.
     "metrics_port": None,
+    # The reference's diagnosis watchdog interval: the watchdog is not
+    # ported yet, so resolve_config raises when any layer sets it (ROADMAP
+    # queue A item 9).
     "doctor_interval": None,
     # Suggest gateway: a worker-level knob, never part of the stored
     # experiment identity.  None = local algorithm instance (the default);
@@ -163,8 +171,8 @@ def _env_config():
     return out
 
 
-#: Keys of the reference's telemetry plane, which the port does not have.
-_TELEMETRY_KEYS = ("telemetry", "metrics_port", "doctor_interval")
+#: Keys of the reference that start a part the port does not have yet.
+_UNPORTED_KEYS = ("doctor_interval",)
 
 
 def merge_configs(*configs):
@@ -193,10 +201,10 @@ def resolve_config(file_config=None, cmd_config=None, storage_override=None):
     )
     if storage_override:
         config["storage"] = storage_override
-    unported = [key for key in _TELEMETRY_KEYS if config.get(key) is not None]
+    unported = [key for key in _UNPORTED_KEYS if config.get(key) is not None]
     if unported:
         raise NotImplementedError(
-            f"{', '.join(unported)}: the telemetry plane is not ported yet "
-            "(ROADMAP queue A item 5, old item 9)"
+            f"{', '.join(unported)}: the diagnosis watchdog is not ported yet "
+            "(ROADMAP queue A item 9)"
         )
     return config

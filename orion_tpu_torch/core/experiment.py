@@ -22,6 +22,7 @@ from orion_tpu_torch.algo.base import create_algo
 from orion_tpu_torch.core.strategy import create_strategy
 from orion_tpu_torch.core.trial import ID_SCHEMES, Trial, compute_scheme_ids
 from orion_tpu_torch.space.dsl import build_space
+from orion_tpu_torch.telemetry import TELEMETRY
 from orion_tpu_torch.utils.exceptions import (
     DuplicateKeyError,
     FailedUpdate,
@@ -134,10 +135,12 @@ class Experiment:
         """Sweep reserved trials with stale heartbeats back to reservable
         (the elastic-recovery story; reference `experiment.py:217-232`)."""
         self._last_lost_sweep = time.monotonic()
+        TELEMETRY.count("experiment.lost_trial_sweeps")
         for trial in self._storage.fetch_lost_trials(self._id, self.heartbeat):
             try:
                 self._storage.set_trial_status(trial, "interrupted", was="reserved")
                 log.info("Recovered lost trial %s", trial.id)
+                TELEMETRY.count("experiment.lost_trials_recovered")
             except FailedUpdate:
                 pass  # another worker got there first — fine
 

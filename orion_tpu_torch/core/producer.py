@@ -20,10 +20,22 @@ Where the port differs from the reference:
   (``Experiment.register_lies``), where the reference writes each on its
   own: on the ``pickled`` file each write rewrites the whole file, so two
   workers at q=1024 paid 1024 rewrites a round for the other's batch.
-- Left out, as they only observe: the telemetry spans, the flight
-  recorder, the device-memory gauge and the serve-placement gauges.  The
-  per-round health record is kept (``record_health=True``) without the
-  reference's ``mem_bytes`` stamp.
+Telemetry, as in the reference: every ``produce`` round is the root span
+``producer.round`` (a new distributed trace: the storage ops it causes
+nest inside it); the producer's suggest / register / observe samples
+become ``producer.<op>`` spans booked once a round; a ``producer.round``
+flight event per round; on the speculative path a ``device.dispatch``
+span per ring entry (dispatch to finalize or discard) and a
+``producer.speculative_dispatch`` span for the host's share; and
+``_flush_timings`` drains the spans (the flight events mirrored as
+``flight.*`` spans) to storage every round and upserts the metrics
+snapshot at most every :attr:`Producer.METRICS_FLUSH_INTERVAL` seconds.
+
+Left out: the health record's ``mem_bytes`` stamp and the device-memory
+sampling before a snapshot (``sample_memory``), which come with the device
+plane (ROADMAP queue A item 6), and the serve-placement gauges
+(``_sample_serve_placement``, reference ``producer.py:350-374``), which
+come with ``serve`` (item 8).
 """
 
 import copy
@@ -36,7 +48,9 @@ from collections import deque
 import numpy as np
 
 from orion_tpu_torch.core.trial import RESERVABLE_STATUSES, Result, Trial, TrialBatch
+from orion_tpu_torch.health import FLIGHT, flight_events_as_spans
 from orion_tpu_torch.storage.retry import RetryPolicy
+from orion_tpu_torch.telemetry import TELEMETRY, current_trace_context
 from orion_tpu_torch.utils.exceptions import (
     AlgorithmExhausted,
     DuplicateKeyError,
@@ -81,8 +95,13 @@ def _advance_rng(real, naive):
 
 
 class Producer:
-    def __init__(self, experiment, max_idle_time=None, pipeline_depth=None,
-                 record_health=False):
+    #: Minimum seconds between metrics-snapshot upserts: _flush_timings
+    #: runs from both update() and produce(), and the snapshot (every
+    #: histogram's full bucket array) is the heaviest telemetry write —
+    #: a q-round's worth of freshness is plenty.
+    METRICS_FLUSH_INTERVAL = 2.0
+
+    def __init__(self, experiment, max_idle_time=None, pipeline_depth=None):
         from orion_tpu_torch.core.experiment import (
             DEFAULT_MAX_IDLE_TIME,
             DEFAULT_PIPELINE_DEPTH,
@@ -105,12 +124,6 @@ class Producer:
         self.algorithm = experiment.algorithm
         self.strategy = experiment.strategy
         self.max_idle_time = max_idle_time
-        # One health record per produce round (the algorithm's own
-        # health_record(), flushed through the storage health channel).
-        # The reference writes it only with its telemetry switched on; off
-        # by default here too, since the record costs a device->host copy
-        # and a storage write a round.
-        self.record_health = bool(record_health)
         self.naive_algorithm = None
         self._observed_ids = set()  # replaces reference TrialsHistory dedup
         self._leaf_ids = []  # lineage: children of observed DAG (trials_history.py)
@@ -140,13 +153,23 @@ class Producer:
         self._n_in_flight = 0  # status == reserved (someone is executing)
         self._n_reservable = 0  # new/suspended/interrupted (worker can consume)
         self._pending_timings = []
+        # Telemetry span entries buffered per round and booked in ONE
+        # record_spans_batch call at flush time — the per-sample
+        # record_span each paid a lock round-trip inside the hot loop.
+        self._pending_spans = []
+        # One optimization-health record per produce round, built at round
+        # end with telemetry on and flushed through the storage health
+        # channel next to the spans/metrics.
         self._pending_health = None
         self._round_index = 0
+        self._last_metrics_flush = float("-inf")
         self._n_completed_seen = 0
         self._update_epoch = 0
         # The speculative ring: up to ``pipeline_depth`` in-flight rounds,
-        # oldest first, each a ``(handle, algo)`` pair — the unforced device
-        # handle and the naive copy that dispatched it.  Round k's storage
+        # oldest first, each ``(handle, algo, t0, ctx)`` — the unforced
+        # device handle, the naive copy that dispatched it, and (telemetry
+        # on) the dispatch time and trace context its ``device.dispatch``
+        # span closes against.  Round k's storage
         # commit and codec work run while rounds k+1..k+N sit here (CUDA
         # launches are asynchronous).
         self._spec_ring = deque()
@@ -278,21 +301,79 @@ class Producer:
 
     def _record_timing(self, op, duration, count):
         """Buffer a timing sample; flushed once per produce()/update() round
-        so timing never adds a storage write inside the hot retry loop."""
-        self._pending_timings.append((op, duration, count))
+        so telemetry never adds a storage write inside the hot retry loop.
 
-    def _flush_timings(self):
-        """Write the buffered timing samples and the round's health record
-        to storage.  Never breaks the run."""
+        The same sample also feeds the process-wide telemetry registry as a
+        ``producer.{op}`` span + histogram entry — BUFFERED like the
+        storage samples and booked in one ``record_spans_batch`` call at
+        flush time, so the hot loop pays no registry lock per sample.
+        The span start is captured here (now - duration) so batching does
+        not shift the record on the trace timeline."""
+        self._pending_timings.append((op, duration, count))
+        # Guarded: the span name f-string and args dict must not be
+        # allocated per sample when telemetry is off — this runs inside
+        # every produce()/update() round.  The ambient TraceContext is
+        # captured NOW (fifth element): the batch flushes at round end,
+        # when the ambient may already belong to the next round.
+        if TELEMETRY.enabled:
+            self._pending_spans.append(
+                (
+                    f"producer.{op}",
+                    time.perf_counter() - duration,
+                    duration,
+                    {"count": count},
+                    current_trace_context(),
+                )
+            )
+
+    def _flush_timings(self, force_metrics=False):
+        """Telemetry must never break the run.
+
+        Flushes the buffered timing samples and the round's health record
+        through storage AND, when the telemetry registry is enabled, this
+        worker's new span records (drained once each; the flight events
+        mirrored as ``flight.*`` spans) + a metrics snapshot upsert — so
+        ``orion-tpu-torch metrics``/``trace`` aggregate across worker
+        processes.  The snapshot upsert is time-gated
+        (METRICS_FLUSH_INTERVAL): this runs from update() AND produce(),
+        and re-upserting an all-histograms snapshot twice per round would
+        tax the storage hot path.  ``force_metrics`` (the end-of-run
+        flush) bypasses the gate so final totals always land."""
         samples, self._pending_timings = self._pending_timings, []
         health, self._pending_health = self._pending_health, None
+        if (not samples and not health and not TELEMETRY.enabled
+                and not FLIGHT.enabled):
+            return
+        # Book the round's buffered producer spans in one registry call
+        # BEFORE draining, so they ride this very flush to storage.
+        if self._pending_spans:
+            pending, self._pending_spans = self._pending_spans, []
+            TELEMETRY.record_spans_batch(pending)
         try:
             if samples:
                 self.experiment.storage.record_timings(self.experiment, samples)
+            spans = TELEMETRY.drain_spans() if TELEMETRY.enabled else []
+            if FLIGHT.enabled:
+                # Mirror drained flight events into the spans channel as
+                # flight.* records, so `orion-tpu-torch flight-record -n
+                # NAME` can reconstruct this worker's recent history.
+                spans = spans + flight_events_as_spans(FLIGHT.drain())
+            if spans:
+                self.experiment.storage.record_spans(self.experiment, spans)
             if health:
                 self.experiment.storage.record_health(self.experiment, health)
+            if TELEMETRY.enabled:
+                now = time.monotonic()
+                if (
+                    force_metrics
+                    or now - self._last_metrics_flush >= self.METRICS_FLUSH_INTERVAL
+                ):
+                    self.experiment.storage.record_metrics(
+                        self.experiment, TELEMETRY.snapshot()
+                    )
+                    self._last_metrics_flush = now
         except Exception:  # pragma: no cover - read-only/remote storage quirks
-            log.debug("could not record timings", exc_info=True)
+            log.debug("could not record telemetry", exc_info=True)
 
     def _update_naive_algorithm(self, incomplete):
         """Naive algo = deepcopy of real + lies for in-flight trials
@@ -364,6 +445,14 @@ class Producer:
         caller against itself (``ExperimentClient.suggest`` holding a
         partial batch) — so the wait only applies when reserved trials
         beyond the caller's own exist."""
+        # root=True: every produce round IS one distributed trace — the
+        # storage commits it causes all stamp this round's trace_id, which
+        # is what `orion-tpu-torch trace --attribute` buckets the round's
+        # wall time by.
+        with TELEMETRY.span("producer.round", root=True):
+            return self._produce(pool_size, own_in_flight)
+
+    def _produce(self, pool_size, own_in_flight):
         pool_size = pool_size or self.experiment.pool_size
         self._refresh_register_suggestion_gate()
         registered = 0
@@ -459,7 +548,7 @@ class Producer:
                     # Transport-level commit failure (no per-slot outcomes):
                     # the batch's fate is unknown, so every ring entry
                     # conditioned on it must go.
-                    self._spec_ring.clear()
+                    self._discard_spec_ring()
                 raise
             self._record_timing("register", time.perf_counter() - t0, len(batch))
             had_duplicate = False
@@ -492,14 +581,23 @@ class Producer:
                 # The speculative copies were conditioned on slots that did
                 # not register; drop the whole ring — the post-loop dispatch
                 # (or the next round's) redoes it from the true set.
-                self._spec_ring.clear()
+                self._discard_spec_ring()
             if batch_error is not None:
                 raise batch_error
             if had_duplicate:
                 self.backoff()
         self._round_index += 1
-        if self.record_health:
+        if TELEMETRY.enabled:
+            # One optimization-health record per round: the naive copy ran
+            # this round's fused suggest (its GPState carries the packed
+            # device health), the REAL algorithm holds the honest host
+            # truth — merge with the real instance's fields winning.
             self._pending_health = self._build_health(registered)
+        if FLIGHT.enabled:
+            FLIGHT.record(
+                "producer.round",
+                args={"round": self._round_index, "registered": registered},
+            )
         self._flush_timings()
         if len(self._spec_ring) < self._effective_pipeline_depth(
             self.naive_algorithm
@@ -561,6 +659,27 @@ class Producer:
             return None
 
     # --- speculative overlap ------------------------------------------------
+    def _close_entry_window(self, t0, ctx, outcome):
+        """Close one ring entry's ``device.dispatch`` span: the async
+        device work window from speculative dispatch to finalize/discard."""
+        # t0 is only ever stamped with telemetry enabled, but the args dict
+        # below must provably not allocate on the disabled path, so the
+        # guard is explicit (it also closes the window cleanly if the
+        # registry was disabled mid-run).
+        if t0 is not None and TELEMETRY.enabled:
+            TELEMETRY.record_span(
+                "device.dispatch", start=t0, args={"outcome": outcome},
+                parent_ctx=ctx,
+            )
+
+    def _discard_spec_ring(self):
+        """Drop every in-flight speculative round (commit failure, duplicate
+        slots, naive-copy invalidation): their conditioning presumed a
+        registration set that did not hold, so none may be consumed."""
+        while self._spec_ring:
+            _handle, _algo, t0, ctx = self._spec_ring.popleft()
+            self._close_entry_window(t0, ctx, "discarded")
+
     def _dispatch_speculative(self, pool_size, registered_trials):
         """Top the speculative ring up to ``pipeline_depth`` in-flight
         rounds before this round's trials execute.
@@ -584,8 +703,9 @@ class Producer:
         if algo is None or not getattr(algo, "speculation_safe", False):
             # A non-speculative algorithm must never leave stale handles
             # behind.
-            self._spec_ring.clear()
+            self._discard_spec_ring()
             return False
+        t_dispatch = time.perf_counter() if TELEMETRY.enabled else None
         dispatched = 0
         try:
             # Condition each trial onto this naive copy AT MOST ONCE (the
@@ -619,14 +739,25 @@ class Producer:
                         algo.observe(lie_params, lie_results)
             depth = self._effective_pipeline_depth(algo)
             while len(self._spec_ring) < depth:
+                t0 = time.perf_counter() if TELEMETRY.enabled else None
                 handle = algo.dispatch_suggest(pool_size)
                 if handle is None:
                     break
-                self._spec_ring.append((handle, algo))
+                ctx = current_trace_context() if t0 is not None else None
+                self._spec_ring.append((handle, algo, t0, ctx))
                 dispatched += 1
         except Exception:  # pragma: no cover - speculation must never break a run
             log.debug("speculative dispatch failed", exc_info=True)
             return bool(self._spec_ring)
+        if t_dispatch is not None:
+            # Host-side cost of conditioning + async dispatch; the device
+            # work windows are the per-entry open ``device.dispatch`` spans
+            # above.
+            TELEMETRY.record_span(
+                "producer.speculative_dispatch",
+                start=t_dispatch,
+                args={"dispatched": dispatched},
+            )
         if dispatched:
             # Keep the real algo's random stream ahead of the speculative
             # draws, or the next naive copy would replay them.
@@ -636,19 +767,21 @@ class Producer:
     def _take_speculative(self, pool_size):
         if not self._spec_ring:
             return None
-        handle, algo = self._spec_ring.popleft()
+        handle, algo, t0, ctx = self._spec_ring.popleft()
         try:
             t_fin = time.perf_counter()
             out = algo.finalize_suggest_batch(handle).params[:pool_size]
             # Timed as "suggest": what remains of the device round trip
             # after the overlap (ideally just the residual transfer).
             self._record_timing("suggest", time.perf_counter() - t_fin, len(out))
+            self._close_entry_window(t0, ctx, "finalized")
             return out
         except Exception:  # pragma: no cover - speculation must never break a run
             log.debug("speculative finalize failed", exc_info=True)
+            self._close_entry_window(t0, ctx, "failed")
             # Later entries share the failed handle's lineage (same naive
             # copy, same device stream) — discard rather than trust them.
-            self._spec_ring.clear()
+            self._discard_spec_ring()
             return None
 
     def backoff(self):
@@ -660,7 +793,9 @@ class Producer:
         # The unified backoff policy (storage/retry.py): exponential from
         # 10ms, capped at 0.5s, jittered so concurrent producers
         # de-synchronize.
-        self._backoff_policy.sleep(self.failure_count)
+        self._backoff_policy.sleep(
+            self.failure_count, op="producer.backoff", span="producer.backoff"
+        )
         self.failure_count += 1
 
 

@@ -8,9 +8,13 @@ end.  Many workers running this loop against one shared storage is the
 framework's data-parallel execution model; on-device parallelism lives
 inside each algorithm's suggest step.
 
-Left out, as they belong to the telemetry plane (ROADMAP queue A item 5):
-the worker's metrics server, the diagnosis watchdog and the crash flight
-record.
+Observability, as in the reference: the worker's ``/metrics`` +
+``/healthz`` server starts with the loop when ``ORION_TPU_METRICS_PORT``
+(or the ``metrics_port:`` config key) asks for one; a crash dumps the
+flight recorder's ring next to the process (``flight-<name>-<pid>.jsonl``);
+and the loop's end flushes the producer's last spans and a final metrics
+snapshot.  Left out: the diagnosis watchdog (``doctor_interval``), which
+comes with the diagnosis package (ROADMAP queue A item 9).
 """
 
 import io
@@ -20,6 +24,7 @@ import time
 from orion_tpu_torch.core.consumer import Consumer
 from orion_tpu_torch.core.experiment import DEFAULT_HEARTBEAT, DEFAULT_MAX_IDLE_TIME
 from orion_tpu_torch.core.producer import Producer
+from orion_tpu_torch.health import FLIGHT
 from orion_tpu_torch.storage.retry import RetryPolicy, is_transient
 from orion_tpu_torch.utils.exceptions import (
     AlgorithmExhausted,
@@ -57,7 +62,7 @@ def reserve_trial(experiment, producer, max_rounds=MAX_RESERVE_ROUNDS, policy=No
         if attempt:
             # First empty round just produces (the common cold-start);
             # repeated ones mean contention — space them out.
-            policy.sleep(attempt - 1)
+            policy.sleep(attempt - 1, op="reserve_trial", span="worker.backoff")
         log.debug("no pending trials; producing a new batch")
         producer.update()
         producer.produce()
@@ -76,16 +81,37 @@ def workon(
     """Run the optimization loop for up to `worker_trials` trials."""
     if worker_trials is None or worker_trials < 0:
         worker_trials = float("inf")
+    # Pull-based metrics plane (orion_tpu_torch.metrics): a worker opts in
+    # via the ORION_TPU_METRICS_PORT env var (or the `metrics_port:` config
+    # key, which cli/base.py resolves to the same spelling) — idempotent,
+    # one daemon /metrics + /healthz server per process, failures logged
+    # not raised.
+    from orion_tpu_torch.metrics import ensure_worker_metrics_server
+
+    ensure_worker_metrics_server()
     producer = Producer(experiment, max_idle_time=max_idle_time)
     consumer = Consumer(
         experiment, cmdline_parser, heartbeat_interval=heartbeat_interval
     )
     try:
         iterations = _workon_loop(experiment, producer, consumer, worker_trials)
+    except BaseException as exc:
+        # Crash flight record: dump the bounded ring of recent structured
+        # events (round boundaries, retries, status transitions) as a JSONL
+        # artifact next to the crash, so the post-mortem starts with a
+        # timeline instead of a bare traceback.  None when the recorder is
+        # disabled; dump_crash never raises.
+        path = FLIGHT.dump_crash(experiment.name, exc)
+        if path:
+            log.error("worker crashed; flight record written to %s", path)
+        raise
     finally:
-        # The last round's timing samples would otherwise die with the
-        # process.  Never raises.
-        producer._flush_timings()
+        # Final telemetry flush: the last round's timing samples, spans and
+        # metrics (the closing producer.round span included) would
+        # otherwise die with the process.  Fire-and-forget by contract;
+        # force_metrics bypasses the per-round upsert gate so the worker's
+        # final counter totals always land.
+        producer._flush_timings(force_metrics=True)
     if experiment.is_broken:
         # The budget may be exhausted on the very last worker iteration —
         # still a broken experiment, not a clean exit.
@@ -135,7 +161,9 @@ def _workon_loop(experiment, producer, consumer, worker_trials):
             degrade_state["count"] + 1,
             exc,
         )
-        degrade_policy.sleep(degrade_state["count"])
+        degrade_policy.sleep(
+            degrade_state["count"], op=f"worker.{where}", span="worker.backoff"
+        )
         degrade_state["count"] += 1
         return True
 

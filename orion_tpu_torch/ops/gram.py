@@ -29,6 +29,7 @@ A tensor on the CPU goes to :func:`fused_gram_reference`, the plain PyTorch
 version.  A CUDA tensor launches the kernel or raises: there is no fallback.
 """
 
+import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -46,6 +47,11 @@ _CHUNKED_TILE = (64, 64)
 _CHUNK = 16
 _ROW_PAD = 4
 SMEM_BUDGET = 48 * 1024
+
+#: Under ``torch.profiler`` each launch sits in a range named
+#: ``"fused_gram MxNxD"``, so a trace shows the shape every launch ran at.
+#: Outside a profile this costs one check of the profiler's state.
+PROFILE_RANGE = "fused_gram"
 
 
 class LaunchPlan(NamedTuple):
@@ -155,7 +161,9 @@ def fused_gram(xa, xb, inv_lengthscales, amplitude, *, kind="matern52"):
         return out
     plan = _launch_plan(m, n, d, out.data_ptr() % 16 == 0)
     lib = _lib()
-    with torch.cuda.device(xa.device):
+    scope = (torch.profiler.record_function(f"{PROFILE_RANGE} {m}x{n}x{d}")
+             if torch._C._autograd._profiler_enabled() else contextlib.nullcontext())
+    with scope, torch.cuda.device(xa.device):
         rc = lib.orion_fused_gram_f32(
             xa.data_ptr(), xb.data_ptr(), ils.data_ptr(), amp.data_ptr(), out.data_ptr(),
             m, n, d, _KINDS[kind], *plan, torch.cuda.current_stream(xa.device).cuda_stream,

@@ -1,7 +1,9 @@
 """Storage protocol: every coordination primitive workers rely on (port of
 ``orion_tpu/storage/base.py`` over the three local backends, ``memory``,
-``pickled`` and ``sqlite``; the reference's telemetry spans and its metrics/spans
-channels are left out, as they only observe).
+``pickled`` and ``sqlite``, with the reference's telemetry: a span and a
+``storage.<backend>.<op>`` histogram per hot-path op, the backends' own
+counters, the ``trial.status`` flight event, and the metrics and spans
+channels the workers flush through).
 
 Capability parity: reference `src/orion/storage/base.py` (BaseStorageProtocol,
 singleton access) + `src/orion/storage/legacy.py` (protocol mapped onto a
@@ -17,9 +19,15 @@ import functools
 import time
 
 from orion_tpu_torch.core.trial import RESERVABLE_STATUSES, Trial
+from orion_tpu_torch.health import FLIGHT
 from orion_tpu_torch.storage.backends import PickledDB
 from orion_tpu_torch.storage.documents import MemoryDB
 from orion_tpu_torch.storage.retry import MODE_ALWAYS, MODE_UNAPPLIED, create_retry_policy
+from orion_tpu_torch.telemetry import (
+    TELEMETRY,
+    current_trace_context,
+    set_trace_context,
+)
 from orion_tpu_torch.utils.exceptions import DatabaseError, FailedUpdate
 
 
@@ -104,6 +112,20 @@ class BaseStorage:
     def record_timings(self, experiment, samples):
         """Append ``[(op, duration, count), ...]`` timing samples."""
 
+    def record_metrics(self, experiment, snapshot, worker=None):
+        """Upsert one worker's telemetry metrics snapshot."""
+
+    def fetch_metrics(self, experiment):
+        """All workers' metric snapshot docs for ``experiment``."""
+        return []
+
+    def record_spans(self, experiment, spans):
+        """Append drained span records for ``experiment``."""
+
+    def fetch_spans(self, experiment):
+        """Every stored span record for ``experiment``, time-ordered."""
+        return []
+
     def record_health(self, experiment, record, worker=None):
         """Append one per-round optimization-health record."""
 
@@ -161,8 +183,8 @@ INDEX_SPECS = [
     ("trials", ["status"], False),
     ("trials", ["experiment", "status"], False),
     ("lying_trials", ["experiment"], False),
-    # The reference's telemetry channels: the port writes none of them,
-    # but keeps the reference's index layout so the files stay alike.
+    # Unified-telemetry channel: spans are counted/pruned and metrics
+    # upserted by (experiment, worker) on every worker flush round.
     ("metrics", ["experiment"], False),
     ("spans", ["experiment"], False),
     # Optimization-health channel: one record per producer round, appended
@@ -171,10 +193,90 @@ INDEX_SPECS = [
 ]
 
 
-def _retrying(mode=MODE_ALWAYS):
-    """Run a protocol op under the storage instance's unified
-    :class:`~orion_tpu_torch.storage.retry.RetryPolicy`; ``mode`` says
-    whether the op converges under re-application."""
+#: Telemetry label per backend class; unknown (third-party) backends fall
+#: back to their lowercased class name.  The network and sharded backends
+#: (ROADMAP queue A item 7) bring their labels with them.
+_BACKEND_LABELS = {
+    "MemoryDB": "memory",
+    "PickledDB": "pickled",
+    "SQLiteDB": "sqlite",
+}
+
+#: Backend-maintained monotonic counters re-exported through the telemetry
+#: registry (sampled at snapshot time — zero hot-path cost).  Backends that
+#: lack an attribute skip it.
+_BACKEND_COUNTER_ATTRS = ("txn_count",)
+
+
+def _traced(op, span_name=None, retry=MODE_ALWAYS):
+    """Time a DocumentStorage protocol op into the telemetry registry: a
+    ``storage.{op}`` span (overridable — ``register_trials`` reports as
+    ``storage.commit``, the produce round's write) plus a per-backend
+    per-op latency histogram ``storage.{backend}.{op}``.  Disabled
+    telemetry costs one attribute check.
+
+    ``retry`` applies the storage instance's unified
+    :class:`~orion_tpu_torch.storage.retry.RetryPolicy` around the op (the mode
+    says whether the op converges under re-application; None opts out).
+    Retries happen INSIDE the span/histogram window, so the recorded op
+    latency is what the caller actually waited — the separate
+    ``storage.retries`` counter says how much of it was retry."""
+
+    def decorate(fn):
+        name = span_name or f"storage.{op}"
+
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            policy = self._retry
+            if policy is not None and retry is not None:
+                def run():
+                    return policy.run(
+                        lambda: fn(self, *args, **kwargs), op=op, mode=retry
+                    )
+            else:
+                def run():
+                    return fn(self, *args, **kwargs)
+            if not TELEMETRY.enabled:
+                return run()
+            t0 = time.perf_counter()
+            # Run the op AS a child trace context: wire clients underneath
+            # (NetworkDB) inject the ambient context into their request
+            # envelopes, so the server's apply span parents at THIS op span
+            # (storage.commit -> netdb.apply in the distributed merge).
+            parent = current_trace_context()
+            ctx = parent.child() if parent is not None and parent.sampled else None
+            if ctx is not None:
+                set_trace_context(ctx)
+            try:
+                return run()
+            finally:
+                if ctx is not None:
+                    set_trace_context(parent)
+                duration = time.perf_counter() - t0
+                backend = self._backend_label
+                # histogram=False: the sample's ONE histogram home is the
+                # per-backend key below — same-name span histograms would
+                # double every snapshot's payload and duplicate info rows.
+                TELEMETRY.record_span(
+                    name,
+                    start=t0,
+                    args={"backend": backend},
+                    histogram=False,
+                    span_ctx=ctx,
+                    parent_ctx=parent if ctx is not None else None,
+                )
+                TELEMETRY.observe(f"storage.{backend}.{op}", duration)
+
+        return wrapper
+
+    return decorate
+
+
+def _retrying(op, mode=MODE_ALWAYS):
+    """Retry-only wrapper (no span) for the protocol ops outside the traced
+    set — reads and auxiliary writes share the same policy and transient
+    classification as the hot-path ops, they just don't each earn a
+    telemetry stream."""
 
     def decorate(fn):
         @functools.wraps(fn)
@@ -182,7 +284,7 @@ def _retrying(mode=MODE_ALWAYS):
             policy = self._retry
             if policy is None:
                 return fn(self, *args, **kwargs)
-            return policy.run(lambda: fn(self, *args, **kwargs), mode=mode)
+            return policy.run(lambda: fn(self, *args, **kwargs), op=op, mode=mode)
 
         return wrapper
 
@@ -200,6 +302,14 @@ class DocumentStorage(BaseStorage):
         # accepts a RetryPolicy, a ``storage.retry`` config dict, or
         # False to disable (raw pre-policy behavior).
         self._retry = create_retry_policy(retry)
+        self._backend_label = _BACKEND_LABELS.get(
+            type(db).__name__, type(db).__name__.lower()
+        )
+        for attr in _BACKEND_COUNTER_ATTRS:
+            if isinstance(getattr(db, attr, None), int):
+                TELEMETRY.register_external_counter(
+                    f"storage.{self._backend_label}.{attr}", db, attr
+                )
         self._setup_indexes()
 
     @property
@@ -217,7 +327,7 @@ class DocumentStorage(BaseStorage):
         self._db.ensure_indexes(INDEX_SPECS)
 
     # --- experiments --------------------------------------------------------
-    @_retrying(MODE_ALWAYS)
+    @_retrying("create_experiment", mode=MODE_ALWAYS)
     def create_experiment(self, config):
         """Insert a new experiment config; DuplicateKeyError if (name, version)
         already exists — callers translate that into a RaceCondition retry.
@@ -230,7 +340,7 @@ class DocumentStorage(BaseStorage):
         config["_id"] = _id
         return config
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("update_experiment", mode=MODE_ALWAYS)
     def update_experiment(self, experiment=None, uid=None, where=None, **kwargs):
         query = dict(where or {})
         if uid is not None:
@@ -245,25 +355,25 @@ class DocumentStorage(BaseStorage):
             )
         return self._db.write("experiments", kwargs, query=query)
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("fetch_experiments", mode=MODE_ALWAYS)
     def fetch_experiments(self, query, projection=None):
         return self._db.read("experiments", query, projection)
 
     # --- trials -------------------------------------------------------------
-    @_retrying(MODE_ALWAYS)
+    @_traced("register_trial", retry=MODE_ALWAYS)
     def register_trial(self, trial):
         """Insert a new trial; DuplicateKeyError on a duplicate point id."""
         trial.submit_time = trial.submit_time or time.time()
         self._db.write("trials", trial.to_dict())
         return trial
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("register_lie", mode=MODE_ALWAYS)
     def register_lie(self, trial):
         trial.submit_time = trial.submit_time or time.time()
         self._db.write("lying_trials", trial.to_dict())
         return trial
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("register_lies", mode=MODE_ALWAYS)
     def register_lies(self, trials):
         """Batch twin of :meth:`register_lie`, ONE backend round (one
         lock/load/dump cycle on the pickled file).  The reference writes
@@ -284,7 +394,7 @@ class DocumentStorage(BaseStorage):
             for trial, result in zip(trials, results)
         ]
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("fetch_lies", mode=MODE_ALWAYS)
     def fetch_lies(self, experiment):
         docs = self._db.read("lying_trials", {"experiment": _exp_id(experiment)})
         return [Trial.from_dict(d) for d in docs]
@@ -310,7 +420,7 @@ class DocumentStorage(BaseStorage):
         }
         return query, update
 
-    @_retrying(MODE_ALWAYS)
+    @_traced("reserve_trial", retry=MODE_ALWAYS)
     def reserve_trial(self, experiment):
         """Atomically claim one pending trial (the cross-worker sync point;
         reference `legacy.py:253-273`)."""
@@ -333,7 +443,7 @@ class DocumentStorage(BaseStorage):
         :meth:`_db_batch_capable` first and loop per-op otherwise."""
         return self._db.apply_batch(ops)
 
-    @_retrying(MODE_ALWAYS)
+    @_traced("reserve_trials", retry=MODE_ALWAYS)
     def reserve_trials(self, experiment, num):
         """Claim up to ``num`` pending trials; each claim is individually
         atomic (repeated find-one-and-updates — every op sees the previous
@@ -387,7 +497,7 @@ class DocumentStorage(BaseStorage):
         # surface on the next (empty-handed) round.
         return out
 
-    @_retrying(MODE_ALWAYS)
+    @_traced("register_trials", span_name="storage.commit", retry=MODE_ALWAYS)
     def register_trials(self, trials):
         """Batch-register; returns one outcome per trial: the trial itself on
         success or the per-trial exception (DuplicateKeyError for an
@@ -416,7 +526,7 @@ class DocumentStorage(BaseStorage):
             for trial, result in zip(trials, results)
         ]
 
-    @_retrying(MODE_ALWAYS)
+    @_traced("register_trials", span_name="storage.commit", retry=MODE_ALWAYS)
     def register_trial_docs(self, docs):
         """Columnar twin of :meth:`register_trials`: RAW trial documents
         (one columnar ``TrialBatch.to_docs`` pass upstream — no ``Trial``
@@ -442,7 +552,7 @@ class DocumentStorage(BaseStorage):
         # the batch primitive's slot shape (per-slot outcomes require it).
         return self._db_batch([("write", ["trials", doc], {}) for doc in docs])
 
-    @_retrying(MODE_ALWAYS)
+    @_traced("update_completed_trials", retry=MODE_ALWAYS)
     def update_completed_trials(self, pairs):
         """Batch-complete ``[(trial, results), ...]`` — one backend round
         (one transaction on SQL, one wire request on the network backend);
@@ -484,14 +594,14 @@ class DocumentStorage(BaseStorage):
                 outcomes.append(trial)
         return outcomes
 
-    @_retrying(MODE_ALWAYS)
+    @_traced("fetch_trials", retry=MODE_ALWAYS)
     def fetch_trials(self, experiment=None, uid=None):
         query = {"experiment": uid if uid is not None else _exp_id(experiment)}
         docs = self._db.read("trials", query)
         docs.sort(key=_trial_doc_order)
         return [Trial.from_dict(d) for d in docs]
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("read_trial_docs", mode=MODE_ALWAYS)
     def read_trial_docs(self, uid, ids=None, projection=None):
         """Raw trial documents for an experiment, optionally id-filtered and
         projected.  The supported read path for consumers that need
@@ -504,7 +614,7 @@ class DocumentStorage(BaseStorage):
             query["_id"] = {"$in": list(ids)}
         return self._db.read("trials", query, projection=projection)
 
-    @_retrying(MODE_ALWAYS)
+    @_traced("fetch_update_view", retry=MODE_ALWAYS)
     def fetch_update_view(self, experiment, known_completed=-1):
         """The producer's per-round sync snapshot: ``(trials, n_completed)``.
 
@@ -552,7 +662,7 @@ class DocumentStorage(BaseStorage):
         docs = sorted(by_id.values(), key=_trial_doc_order)
         return [Trial.from_dict(d) for d in docs], n_completed
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("fetch_trials_by_status", mode=MODE_ALWAYS)
     def fetch_trials_by_status(self, experiment, status):
         statuses = [status] if isinstance(status, str) else list(status)
         docs = self._db.read(
@@ -561,13 +671,13 @@ class DocumentStorage(BaseStorage):
         )
         return [Trial.from_dict(d) for d in docs]
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("get_trial", mode=MODE_ALWAYS)
     def get_trial(self, trial=None, uid=None):
         _id = uid if uid is not None else trial.id
         docs = self._db.read("trials", {"_id": _id})
         return Trial.from_dict(docs[0]) if docs else None
 
-    @_retrying(MODE_UNAPPLIED)
+    @_traced("set_trial_status", retry=MODE_UNAPPLIED)
     def set_trial_status(self, trial, status, was=None):
         """Compare-and-swap status update (reference `legacy.py:223-243`).
 
@@ -615,9 +725,18 @@ class DocumentStorage(BaseStorage):
                 f"trial {trial.id} not updated to {status!r} (was={was!r})"
             )
         trial.status = status
+        # Status transitions are flight-recorder events: the crash
+        # post-mortem wants the recent lifecycle edges on its timeline.
+        # Guarded — the args dict must not allocate when the recorder is off
+        # (this is a per-trial path).
+        if FLIGHT.enabled:
+            FLIGHT.record(
+                "trial.status",
+                args={"trial": trial.id, "from": guard, "to": status},
+            )
         return Trial.from_dict(doc)
 
-    @_retrying(MODE_ALWAYS)
+    @_traced("update_heartbeat", retry=MODE_ALWAYS)
     def update_heartbeat(self, trial):
         doc = self._db.read_and_write(
             "trials",
@@ -627,7 +746,7 @@ class DocumentStorage(BaseStorage):
         if doc is None:
             raise FailedUpdate(f"trial {trial.id} is no longer reserved")
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("fetch_lost_trials", mode=MODE_ALWAYS)
     def fetch_lost_trials(self, experiment, timeout):
         """Reserved trials whose worker stopped heartbeating (crashed/killed)."""
         threshold = time.time() - timeout
@@ -641,7 +760,7 @@ class DocumentStorage(BaseStorage):
         )
         return [Trial.from_dict(d) for d in docs]
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("push_trial_results", mode=MODE_ALWAYS)
     def push_trial_results(self, trial):
         doc = self._db.read_and_write(
             "trials",
@@ -652,7 +771,7 @@ class DocumentStorage(BaseStorage):
             raise FailedUpdate(f"cannot push results of non-reserved trial {trial.id}")
         return Trial.from_dict(doc)
 
-    @_retrying(MODE_ALWAYS)
+    @_traced("update_completed_trial", retry=MODE_ALWAYS)
     def update_completed_trial(self, trial, results):
         trial.results = list(results)
         trial.end_time = time.time()
@@ -670,13 +789,13 @@ class DocumentStorage(BaseStorage):
         trial.status = "completed"
         return trial
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("count_completed_trials", mode=MODE_ALWAYS)
     def count_completed_trials(self, experiment):
         return self._db.count(
             "trials", {"experiment": _exp_id(experiment), "status": "completed"}
         )
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("count_broken_trials", mode=MODE_ALWAYS)
     def count_broken_trials(self, experiment):
         return self._db.count(
             "trials", {"experiment": _exp_id(experiment), "status": "broken"}
@@ -705,7 +824,7 @@ class DocumentStorage(BaseStorage):
     # double-counting it, and the next round flushes fresh data anyway.
     # The prune leg retries separately so ITS transient failure can never
     # re-run an append that already landed.
-    @_retrying(MODE_UNAPPLIED)
+    @_retrying("record_timings", mode=MODE_UNAPPLIED)
     def _append_timings(self, experiment, samples):
         now = time.time()
         exp_id = _exp_id(experiment)
@@ -727,7 +846,7 @@ class DocumentStorage(BaseStorage):
     # Raw _db reads, not fetch_timings: the fetchers carry
     # their own @_retrying, and nesting two policies would compound to
     # max_attempts**2 backend attempts during a sustained outage.
-    @_retrying(MODE_ALWAYS)
+    @_retrying("record_timings.prune", mode=MODE_ALWAYS)
     def _prune_timings(self, experiment):
         exp_id = _exp_id(experiment)
         n = self._db.count("telemetry", {"experiment": exp_id})
@@ -744,13 +863,97 @@ class DocumentStorage(BaseStorage):
                 {"experiment": exp_id, "time": {"$lt": cutoff}},
             )
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("fetch_timings", mode=MODE_ALWAYS)
     def fetch_timings(self, experiment, op=None):
         query = {"experiment": _exp_id(experiment)}
         if op is not None:
             query["op"] = op
         docs = self._db.read("telemetry", query)
         docs.sort(key=lambda d: d.get("time") or 0.0)
+        return docs
+
+    # --- unified telemetry channel (orion_tpu_torch.telemetry snapshots/spans)
+    #: Span documents are pruned past this per-experiment count (same
+    #: unbounded-growth guard as TELEMETRY_CAP for timing samples).
+    SPANS_CAP = 20000
+
+    # Upsert keyed by (experiment, worker): re-applying after an ambiguous
+    # loss converges on the same latest-snapshot doc, so retry always.
+    @_retrying("record_metrics", mode=MODE_ALWAYS)
+    def record_metrics(self, experiment, snapshot, worker=None):
+        """Upsert one worker's metrics snapshot (``Telemetry.snapshot()``)
+        keyed by (experiment, worker) — counters/histograms are per-worker
+        monotonic totals, so the latest doc supersedes earlier ones and
+        ``fetch_metrics`` + ``telemetry.merge_snapshots`` aggregate across
+        the fleet.  ``worker`` defaults to this process's host:pid."""
+        exp_id = _exp_id(experiment)
+        worker = worker or _worker_id()
+        doc = {
+            "experiment": exp_id,
+            "worker": worker,
+            "time": time.time(),
+            "counters": dict(snapshot.get("counters") or {}),
+            "gauges": dict(snapshot.get("gauges") or {}),
+            "histograms": dict(snapshot.get("histograms") or {}),
+        }
+        updated = self._db.write(
+            "metrics", doc, query={"experiment": exp_id, "worker": worker}
+        )
+        if not updated:
+            self._db.write("metrics", doc)
+
+    @_retrying("fetch_metrics", mode=MODE_ALWAYS)
+    def fetch_metrics(self, experiment):
+        docs = self._db.read("metrics", {"experiment": _exp_id(experiment)})
+        docs.sort(key=lambda d: d.get("time") or 0.0)
+        return docs
+
+    def record_spans(self, experiment, spans):
+        """Append drained span records (``Telemetry.drain_spans()``) in ONE
+        backend write; prunes the oldest past :attr:`SPANS_CAP`."""
+        if not spans:
+            return
+        self._append_spans(experiment, spans)
+        self._prune_spans(experiment)
+
+    # Append leg, same contract as record_timings: ambiguous losses give up
+    # instead of risking duplicated span records, and the prune retries
+    # separately so it cannot re-run a landed append.
+    @_retrying("record_spans", mode=MODE_UNAPPLIED)
+    def _append_spans(self, experiment, spans):
+        exp_id = _exp_id(experiment)
+        worker = _worker_id()
+        self._db.write(
+            "spans",
+            [{"experiment": exp_id, "worker": worker, **span} for span in spans],
+        )
+
+    @_retrying("record_spans.prune", mode=MODE_ALWAYS)
+    def _prune_spans(self, experiment):
+        exp_id = _exp_id(experiment)
+        n = self._db.count("spans", {"experiment": exp_id})
+        if n > self.SPANS_CAP:
+            # Prune with hysteresis — down to 90% of the cap, not exactly
+            # to it: a prune-to-cap would leave the collection full, so
+            # EVERY later flush re-pays the full fetch+sort+remove on the
+            # producer's hot path; the 10% slack amortizes it to one prune
+            # per ~2k spans.
+            keep = max(1, int(self.SPANS_CAP * 0.9))
+            docs = self._db.read("spans", {"experiment": exp_id})
+            # Index off the re-read list, not the earlier count: another
+            # worker's prune can land between count() and read().
+            if len(docs) <= keep:
+                return
+            docs.sort(key=lambda d: d.get("ts") or 0.0)
+            cutoff = docs[len(docs) - keep].get("ts") or 0.0
+            self._db.remove(
+                "spans", {"experiment": exp_id, "ts": {"$lt": cutoff}}
+            )
+
+    @_retrying("fetch_spans", mode=MODE_ALWAYS)
+    def fetch_spans(self, experiment):
+        docs = self._db.read("spans", {"experiment": _exp_id(experiment)})
+        docs.sort(key=lambda d: d.get("ts") or 0.0)
         return docs
 
     # --- optimization-health channel --------------------------------------
@@ -773,7 +976,7 @@ class DocumentStorage(BaseStorage):
     # curves), so give up on maybe_applied — the next round flushes fresh
     # data anyway.  The prune leg retries separately so its transient
     # failure can never re-run a landed append.
-    @_retrying(MODE_UNAPPLIED)
+    @_retrying("record_health", mode=MODE_UNAPPLIED)
     def _append_health(self, experiment, record, worker=None):
         doc = dict(record)
         doc["experiment"] = _exp_id(experiment)
@@ -782,7 +985,7 @@ class DocumentStorage(BaseStorage):
             doc["time"] = time.time()
         self._db.write("health", doc)
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("record_health.prune", mode=MODE_ALWAYS)
     def _prune_health(self, experiment):
         exp_id = _exp_id(experiment)
         n = self._db.count("health", {"experiment": exp_id})
@@ -802,13 +1005,13 @@ class DocumentStorage(BaseStorage):
                 "health", {"experiment": exp_id, "time": {"$lt": cutoff}}
             )
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("fetch_health", mode=MODE_ALWAYS)
     def fetch_health(self, experiment):
         docs = self._db.read("health", {"experiment": _exp_id(experiment)})
         docs.sort(key=lambda d: d.get("time") or 0.0)
         return docs
 
-    @_retrying(MODE_ALWAYS)
+    @_retrying("fetch_noncompleted_trials", mode=MODE_ALWAYS)
     def fetch_noncompleted_trials(self, experiment):
         docs = self._db.read(
             "trials",
@@ -853,6 +1056,8 @@ _READONLY_METHODS = {
     "count_completed_trials",
     "count_broken_trials",
     "fetch_timings",
+    "fetch_metrics",
+    "fetch_spans",
     "fetch_health",
 }
 

@@ -1,6 +1,5 @@
 """Unified retry/backoff policy for storage operations (port of
-``orion_tpu/storage/retry.py`` without its telemetry and flight-recorder
-hooks, which only observe).
+``orion_tpu/storage/retry.py``).
 
 ``RetryPolicy`` is the one contract every storage operation shares:
 
@@ -17,7 +16,12 @@ hooks, which only observe).
 - **applied-or-not awareness**: an exception carrying
   ``maybe_applied=True`` is only retried for operations that *converge*
   under re-application.  Non-converging ops give up immediately and
-  surface the ambiguity to the caller.
+  surface the ambiguity to the caller;
+- **telemetry**: every retry books a ``storage.retries`` counter tick +
+  a ``storage.retry.backoff`` span (so retries are visible in a trace
+  exactly where the round stalled) and a ``storage.retry`` flight event,
+  and every exhausted policy books ``storage.gave_up`` (counter and
+  flight event).
 
 ``DocumentStorage`` applies a policy instance to every protocol op
 (``storage/base.py``).
@@ -26,6 +30,8 @@ hooks, which only observe).
 import random
 import time
 
+from orion_tpu_torch.health import FLIGHT
+from orion_tpu_torch.telemetry import TELEMETRY
 from orion_tpu_torch.utils.exceptions import (
     AuthenticationError,
     DatabaseError,
@@ -107,21 +113,35 @@ class RetryPolicy:
         # only shortens — fleets still de-synchronize on the way up).
         return max(0.0, min(raw, self.max_delay))
 
-    def sleep(self, attempt):
-        """Sleep one backoff step; returns its duration."""
+    def sleep(self, attempt, op="storage", span="storage.retry.backoff"):
+        """Sleep one backoff step, booked as a span so stalls show up in
+        traces where they happened.  ``span`` defaults to the storage
+        layer's ``storage.retry.backoff``; non-storage reusers of the
+        policy (producer duplicate backoff, worker reserve spacing) pass
+        their own name so a healthy-but-contended run doesn't read as a
+        struggling store in a trace."""
         duration = self.delay(attempt)
         if duration > 0.0:
             self._sleep(duration)
+        # Guarded: the args dict must not be allocated when telemetry is
+        # off — backoff sleeps sit inside the storage retry hot path.
+        if TELEMETRY.enabled:
+            TELEMETRY.record_span(
+                span,
+                duration=duration,
+                args={"op": op, "attempt": attempt},
+                histogram=False,
+            )
         return duration
 
-    def run(self, fn, mode=MODE_ALWAYS):
+    def run(self, fn, op="storage", mode=MODE_ALWAYS):
         """Call ``fn()`` under this policy.
 
         Transient failures are retried with backoff until ``max_attempts``
         or ``deadline`` runs out; fatal failures raise immediately.  In
         ``mode="unapplied"`` a failure whose ``maybe_applied`` flag is set
         gives up at once (see MODE_UNAPPLIED above).  Gave-up failures
-        re-raise the LAST exception.
+        re-raise the LAST exception after booking ``storage.gave_up``.
         """
         stop_at = (
             None if self.deadline is None else time.monotonic() + self.deadline
@@ -134,14 +154,28 @@ class RetryPolicy:
                 if not is_transient(exc):
                     raise
                 if mode == MODE_UNAPPLIED and getattr(exc, "maybe_applied", False):
+                    TELEMETRY.count("storage.gave_up")
                     raise
                 attempt += 1
                 out_of_budget = attempt >= self.max_attempts or (
                     stop_at is not None and time.monotonic() >= stop_at
                 )
                 if out_of_budget:
+                    TELEMETRY.count("storage.gave_up")
+                    # Guarded (TEL004): the args dict must not allocate on
+                    # the disabled path — this sits inside the retry loop.
+                    if FLIGHT.enabled:
+                        FLIGHT.record(
+                            "storage.gave_up",
+                            args={"op": op, "attempts": attempt},
+                        )
                     raise
-                self.sleep(attempt - 1)
+                TELEMETRY.count("storage.retries")
+                if FLIGHT.enabled:
+                    FLIGHT.record(
+                        "storage.retry", args={"op": op, "attempt": attempt}
+                    )
+                self.sleep(attempt - 1, op=op)
 
 
 def create_retry_policy(config=None):

@@ -1,6 +1,6 @@
 """SQLite document database — durable multi-process storage without a server
-(port of ``orion_tpu/storage/sqlitedb.py``, without its telemetry histogram,
-and with an index over the fields the worker loop filters on: see
+(port of ``orion_tpu/storage/sqlitedb.py``, with its ``storage.sqlite.txn``
+telemetry histogram, and with an index over the fields the worker loop filters on: see
 ``_FIELD_INDEXES``).  The file holds JSON documents in SQL and no class paths,
 so a file either package writes opens in the other.
 
@@ -24,6 +24,7 @@ import json
 import operator
 import sqlite3
 import threading
+import time
 
 from orion_tpu_torch.storage.documents import (
     MemoryDB,
@@ -33,6 +34,7 @@ from orion_tpu_torch.storage.documents import (
     _matches,
     _project,
 )
+from orion_tpu_torch.telemetry import TELEMETRY
 from orion_tpu_torch.utils.exceptions import DatabaseError, DuplicateKeyError
 
 
@@ -178,12 +180,18 @@ class SQLiteDB:
         return conn
 
     class _Txn:
-        """IMMEDIATE transaction: the cross-process synchronization point."""
+        """IMMEDIATE transaction: the cross-process synchronization point.
+
+        Wall time from BEGIN to COMMIT/ROLLBACK (lock wait + statements +
+        WAL sync) feeds the ``storage.sqlite.txn`` telemetry histogram —
+        the commit-latency signal next to the ``txn_count`` counter."""
 
         def __init__(self, conn):
             self.conn = conn
+            self._t0 = None
 
         def __enter__(self):
+            self._t0 = time.perf_counter() if TELEMETRY.enabled else None
             self.conn.execute("BEGIN IMMEDIATE")
             return self.conn
 
@@ -192,6 +200,10 @@ class SQLiteDB:
                 self.conn.execute("COMMIT")
             else:
                 self.conn.execute("ROLLBACK")
+            if self._t0 is not None:
+                TELEMETRY.observe(
+                    "storage.sqlite.txn", time.perf_counter() - self._t0
+                )
 
     def _txn(self):
         with self._txn_count_lock:

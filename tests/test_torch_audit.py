@@ -4,6 +4,8 @@ trial documents on each backend, clean and with seeded violations, give the
 same report; ``Experiment.audit`` and the ``audit`` command (its text and
 exit codes) match the reference's on one file."""
 
+import json
+
 import numpy as np
 import pytest
 
@@ -164,9 +166,29 @@ def test_audit_command_text_and_exit_codes_match_reference(tmp_path, capsys):
     assert _run(ref_main, ["audit", "-n", "nosuch", "--storage-path", db], capsys)[0] == 1
 
 
-def test_audit_flight_out_raises_until_the_flight_recorder_is_ported(tmp_path):
-    db, _ = _cli_store(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        main(["audit", "-n", "aud", "--storage-path", db, "--flight-out",
-              str(tmp_path / "flight.jsonl")])
-    assert not (tmp_path / "flight.jsonl").exists()
+def test_audit_flight_out_raises_until_the_flight_recorder_is_ported(tmp_path, capsys):
+    """The flight recorder is ported: a clean audit writes nothing at
+    ``--flight-out``, a failed one exits 1 and writes the dump, whose
+    ``audit.violation`` events equal the reference's on the same file
+    (exact, without their wall-clock ``ts``), after the reference's
+    header layout.  The name dates from when ``--flight-out`` raised and
+    is kept so that the test's record runs on under one name."""
+    db, exp = _cli_store(tmp_path)
+    outs = {pkg: tmp_path / f"flight-{pkg}.jsonl" for pkg in ("port", "ref")}
+    argv = ["audit", "-n", "aud", "--storage-path", db, "--flight-out"]
+    assert _run(main, argv + [str(outs["port"])], capsys)[0] == 0
+    assert not outs["port"].exists()
+    storage = create_storage({"type": "sqlite", "path": db})
+    storage.db.write("trials", {"results": []}, query={"experiment": exp.id, "status": "completed"})
+    got = _run(main, argv + [str(outs["port"])], capsys)
+    want = _run(ref_main, argv + [str(outs["ref"])], capsys)
+    assert got == (1, want[1].replace(str(outs["ref"]), str(outs["port"])))
+    lines = {pkg: [json.loads(line) for line in path.read_text().splitlines()]
+             for pkg, path in outs.items()}
+    header = {pkg: lines[pkg][0] for pkg in lines}
+    assert header["port"]["type"] == "flight-record" and header["port"]["reason"] == "audit-failure"
+    assert set(header["port"]) == set(header["ref"]) - {"doctor"}
+    events = {pkg: [{k: v for k, v in e.items() if k != "ts"} for e in lines[pkg][1:]]
+              for pkg in lines}
+    assert events["port"] == events["ref"] and len(events["port"]) == 6
+    assert {e["kind"] for e in events["port"]} == {"audit.violation"}

@@ -76,8 +76,33 @@ def test_fused_gram_is_one_launch_per_call(cuda):
         fused_gram(xa, xb, ils, amp)
         torch.cuda.synchronize()
     assert gram.fused_gram.launches == before + 1
-    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # The launch's profiler range may be mirrored on the device's timeline.
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(gram.PROFILE_RANGE + " ")]
     assert len(kernels) == 1 and "gram_kernel" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+def test_fused_gram_launch_sits_in_a_range_named_with_its_dims(cuda, tmp_path):
+    """Under the profiler a launch is wrapped in ``"fused_gram MxNxD"``: the
+    exported trace holds one such range and one kernel for one call."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    xa, xb, ils, amp = _inputs(cuda, 16384, 256, 6)
+    fused_gram(xa, xb, ils, amp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused_gram(xa, xb, ils, amp)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith(gram.PROFILE_RANGE + " ")]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "gram_kernel" in e["name"]]
+    assert ranges == ["fused_gram 16384x256x6"] and len(kernels) == 1
 
 
 @pytest.mark.cuda
@@ -361,3 +386,60 @@ def test_branched_hunt_first_round_is_a_gp_round_on_the_card(cuda, tmp_path, mon
     trials = storage.fetch_trials(uid=exps[2]["_id"])
     assert len(trials) == 1024 and all(t.params["/x0"] <= 0.5 for t in trials)
     assert sum(t.status == "completed" for t in trials) == 4
+
+
+@pytest.fixture
+def telemetry_off_after():
+    """The port's registry and flight recorder, reset and off after the
+    test (process-wide globals)."""
+    from orion_tpu_torch.health import FLIGHT
+    from orion_tpu_torch.telemetry import TELEMETRY
+
+    yield TELEMETRY, FLIGHT
+    for owner in (TELEMETRY, FLIGHT):
+        owner.disable()
+    TELEMETRY.reset()
+    FLIGHT.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", ["off", "on"])
+def test_main_path_rows_equal_with_telemetry_on_and_off(cuda, telemetry_off_after, first):
+    """The main path's round (130 observed, q=1024, 16384 candidates): two
+    copies of one algorithm, one suggesting with telemetry off, the other
+    with it on, in either order, give equal rows (exact), and the on round
+    books one ``suggest_step.dispatch`` span of ``{"q": 1024, "n": 256}``
+    with a ``fused_gram`` launch."""
+    import copy
+
+    import numpy as np
+
+    from orion_tpu_torch.algo.base import create_algo
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.space.dsl import build_space
+
+    telemetry, flight = telemetry_off_after
+    space = build_space({f"x{i}": "uniform(0, 1)" for i in range(6)})
+    algo = create_algo(space, {"tpu_bo": {"n_init": 16, "n_candidates": 16384,
+                                          "fit_steps": 40, "local_frac": 0.3}},
+                       seed=3, device=cuda)
+    x = np.random.default_rng(3).uniform(size=(130, 6)).astype(np.float32)
+    y = hartmann6(torch.from_numpy(x)).numpy()
+    algo.observe([{f"x{i}": float(r[i]) for i in range(6)} for r in x],
+                 [{"objective": float(v)} for v in y])
+    twin = copy.deepcopy(algo)
+    rows = {}
+    for mode in ((first, "on" if first == "off" else "off")):
+        target = algo if mode == "off" else twin
+        for owner in (telemetry, flight):
+            owner.enabled = mode == "on"
+        before = gram.fused_gram.launches
+        rows[mode] = target.suggest_batch(1024).cube
+        torch.cuda.synchronize()
+        assert gram.fused_gram.launches == before + 1
+        telemetry.disable()
+        flight.disable()
+    assert np.array_equal(rows["off"], rows["on"])
+    spans = telemetry.drain_spans()
+    assert [(s["name"], s["args"]) for s in spans] == [
+        ("suggest_step.dispatch", {"q": 1024, "n": 256})]

@@ -1,7 +1,8 @@
 """The port stands alone: ``orion_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX (``jax``, ``jaxlib``, ``optax``) nor any module of the JAX
 package ``orion_tpu`` — matched as the exact module or a dotted prefix, so
-``orion_tpu_torch`` itself does not count."""
+``orion_tpu_torch`` itself does not count.  The telemetry plane's modules
+are also checked by name, and for importing without side effects."""
 
 import ast
 import os
@@ -95,6 +96,40 @@ def test_opening_a_reference_pickled_db_loads_no_jax(tmp_path):
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+TELEMETRY_PLANE = ("telemetry", "tracing", "metrics", "health", "cli.metrics", "cli.trace",
+                   "cli.flight_record")
+
+
+def test_telemetry_plane_stands_alone():
+    """The telemetry plane's modules are among the checked files, and in a
+    fresh interpreter importing them (and the worker loop that starts the
+    metrics server) loads neither JAX nor ``orion_tpu`` and starts no
+    thread: the server starts with a worker loop, never at import."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in TELEMETRY_PLANE:
+        assert os.path.join("orion_tpu_torch", *name.split(".")) + ".py" in files
+    modules = [f"orion_tpu_torch.{name}" for name in TELEMETRY_PLANE]
+    modules.append("orion_tpu_torch.core.worker")
+    code = (
+        "import importlib, sys, threading\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from orion_tpu_torch.telemetry import TELEMETRY\n"
+        "from orion_tpu_torch.health import FLIGHT\n"
+        "assert not TELEMETRY.enabled and not FLIGHT.enabled\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ORION_TPU_TELEMETRY", "ORION_TPU_FLIGHT", "ORION_TPU_METRICS_PORT")}
+    env["PYTHONPATH"] = ROOT
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -269,27 +269,19 @@ def test_strategies_lie_like_the_reference(config):
 
 def test_health_records_match_reference():
     """One health record a round: the naive copy's fields under the real
-    instance's, with the round and its registered count.  The reference
-    writes them with its telemetry on, the port with ``record_health``;
-    compared without ``time`` and the reference's ``mem_bytes`` gauge
-    stamp, which the port leaves out."""
-    from orion_tpu.telemetry import TELEMETRY
+    instance's, with the round and its registered count.  Both packages
+    write them with their telemetry on; compared without ``time`` and the
+    reference's ``mem_bytes`` gauge stamp, which the port leaves out."""
+    from torch_parity import isolated_telemetry
 
     records = []
     for port in (True, False):
         client, storage = _client(port, depth=1, speculative=False)
-        if port:
-            client.producer = Producer(client.experiment, record_health=True)
-        else:
-            TELEMETRY.enable()
-        try:
+        with isolated_telemetry(True):
             for _ in range(3):
                 trials = client.suggest(4)
                 client.observe_all(trials[:3], [_objective(t.params) for t in trials[:3]])
             client.producer.update()
-        finally:
-            if not port:
-                TELEMETRY.disable()
         docs = storage.fetch_health(client.experiment.id)
         records.append([{k: v for k, v in d.items()
                          if k not in ("_id", "time", "worker", "mem_bytes")} for d in docs])

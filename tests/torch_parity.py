@@ -8,8 +8,12 @@ hand the numbers to the port: :func:`jax_suggest_draws` for
 :func:`jax_tpe_draws` for ``tpe._tpe_suggest``, :func:`jax_de_draws` for
 ``de._de_propose``, :func:`jax_cma_z` for ``cmaes._cma_sample`` and
 :func:`jax_asha_uniforms` for ASHA's bracket draw.
+:func:`isolated_telemetry` sets both packages' telemetry registries and
+flight recorders aside for a test.
 """
 
+import contextlib
+import os
 from functools import partial
 
 import jax
@@ -140,3 +144,41 @@ def padded_history(seed, n, n_pad, d, fn=None):
         y[:n] = fn(x[:n])
     mask[:n] = 1.0
     return x, y, mask
+
+
+@contextlib.contextmanager
+def isolated_telemetry(enabled=True):
+    """Both packages' process-wide ``TELEMETRY`` registry and ``FLIGHT``
+    recorder, reset and switched ``enabled`` for the block, then reset and
+    put back as they were (the registries are globals shared with every
+    other test of the process).  ``ORION_TPU_METRICS_PORT``, which a
+    ``metrics_port:`` config sets, is put back too.  Yields ``(port
+    telemetry, port flight, reference telemetry, reference flight)``."""
+    from orion_tpu.health import FLIGHT as REF_FLIGHT
+    from orion_tpu.telemetry import TELEMETRY as REF_TELEMETRY
+    from orion_tpu_torch.health import FLIGHT
+    from orion_tpu_torch.telemetry import TELEMETRY
+
+    owners = (TELEMETRY, FLIGHT, REF_TELEMETRY, REF_FLIGHT)
+    was = [owner.enabled for owner in owners]
+    port_env = os.environ.get("ORION_TPU_METRICS_PORT")
+
+    def clean():
+        for telemetry in (TELEMETRY, REF_TELEMETRY):
+            telemetry.reset()
+        for flight in (FLIGHT, REF_FLIGHT):
+            flight.clear()
+
+    clean()
+    for owner in owners:
+        owner.enabled = bool(enabled)
+    try:
+        yield owners
+    finally:
+        clean()
+        for owner, state in zip(owners, was):
+            owner.enabled = state
+        if port_env is None:
+            os.environ.pop("ORION_TPU_METRICS_PORT", None)
+        else:
+            os.environ["ORION_TPU_METRICS_PORT"] = port_env
