@@ -52,12 +52,12 @@ non-zero; nothing is caught and passed over):
    scenario through ``optimize()``, judged by the port's gate.
 9. ``cli``: ``orion-tpu-torch hunt`` over a pure-Python Hartmann6 user
    script (one subprocess a trial) with the main path's ``tpu_bo``.  First
-   one worker in this process on SQLite, ``--pool-size 1024``, 1280 trials
-   (a random round of 1024, then a GP round of which 256 run), the
+   one worker in this process on SQLite, ``--pool-size 1024``, 1040 trials
+   (a random round of 1024, then a GP round of which 16 run), the
    kernel's launch shapes counted over the call (a launch at 16384 x 256
    x 6), with each trial's subprocess, reservation, completion and status
    reads timed.  Then ``--n-workers 8 --profile`` as a subprocess on a
-   fresh SQLite file, 3072 trials: no trial run twice (the script logs
+   fresh SQLite file, 1280 trials: no trial run twice (the script logs
    each execution), lies registered, the kernel counted in the workers'
    profiler traces, with each worker's device busy time and idle share.
    Last the regret gate's scenario through the CLI on ``pickled``, the
@@ -66,7 +66,7 @@ non-zero; nothing is caught and passed over):
 10. ``evc``: experiment version control through the CLI on the ``cli``
    phase's one-worker store.  ``hunt -n cli`` again with ``x0 ~ uniform(0,
    0.5)`` branches version 2 (a prior change), then with ``x1`` narrowed as
-   well version 3; each runs 256 trials of its own at ``--pool-size 1024``.
+   well version 3; each runs 128 trials of its own at ``--pool-size 1024``.
    Each child's producer fetches its ancestors' trials through the EVC
    tree, adapted hop by hop, so its first round is a GP round (a
    ``fused_gram`` launch at 16384 x 256 x 6).  Checks the ``refers`` chain,
@@ -83,7 +83,7 @@ non-zero; nothing is caught and passed over):
    of each and their ratio, the ``suggest_step.dispatch`` spans.  (b)
    ``orion-tpu-torch hunt --n-workers 4 --profile`` on a fresh SQLite file
    (the ``cli`` phase's script and unseeded ``tpu_bo``, ``--pool-size
-   1024``, 2048 trials), twice: with ``telemetry: false``, and with
+   1024``, 1280 trials), twice: with ``telemetry: false``, and with
    ``telemetry: true`` and a free ``metrics_port``, on first unless
    ``--fleet-off-first`` is given.  While the telemetry run goes,
    ``/metrics`` (Prometheus text, a growing ``storage_sqlite_txn``
@@ -99,7 +99,32 @@ non-zero; nothing is caught and passed over):
    on, interrupted by SIGINT: its crash dump holds ``producer.round``
    events; ``audit --flight-out`` on a copy of (b)'s store with one
    violation planted exits 1 and dumps an ``audit.violation`` event.
-12. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+12. ``network``: networked and sharded storage through ``orion-tpu-torch db
+   serve`` processes (host processes: each is checked to hold no
+   ``/dev/nvidia*`` file and not to add to ``nvidia-smi``'s compute apps),
+   the ``cli`` phase's script and unseeded ``tpu_bo`` at ``--pool-size
+   1024``, traced with ``--profile``, ``telemetry: true``.  (a) One server
+   with ``--persist`` SQLite and ``--secret-file``; ``hunt --n-workers 4``
+   through ``ORION_DB_TYPE=network``, ``ORION_DB_ADDRESS`` and
+   ``ORION_DB_SECRET_FILE``, 1280 trials (the ``telemetry`` fleet's depth):
+   completed equal to the distinct executions (none twice), every
+   completion read back from the server and, after its clean shutdown,
+   from its SQLite file; ``audit``, ``trace --distributed`` holding the
+   server's ``netdb.apply`` spans; trials/s beside the ``telemetry``
+   fleet's four workers on SQLite.  (b) Two
+   primaries, each replicating to one replica with ``--quorum 1``, a
+   ``shards:`` stanza; two experiments the ring places on different
+   shards (checked against ``db ring``), hunted at once by two workers
+   each, 2048 trials each: every completion on the shard's primary and on
+   its replica once their seqs are equal; ``db status --json`` (primaries,
+   quorum 1, lag 0), ``audit --all`` with the topology line, ``metrics``
+   with the router's ``storage.shard.*`` counters.  (c) ``db dump`` of one
+   experiment's shard primary, ``db load`` into a fresh SQLite file (its
+   trial documents equal to the primary's), ``db copy``, ``db
+   migrate-ids`` on the copy and a clean ``audit``, ``info``.  Each
+   experiment's workers launch the kernel at 16384 x 256 x 6 (their
+   traces).
+13. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -107,11 +132,13 @@ Without a CUDA device it exits with code 1 before printing any result.
 
 import bisect
 import collections
+import contextlib
 import json
 import multiprocessing
 import os
 import queue
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -899,9 +926,9 @@ def phase_hunt(device, plain_round_ms):
 CLI_PRIORS = [f"-x{i}~uniform(0, 1)" for i in range(6)]
 CLI_ALGO = {"n_init": 16, "n_candidates": 16384, "fit_steps": 40, "local_frac": 0.3, "seed": 0}
 CLI_Q = 1024
-CLI_TRIALS = 1280  # one random round of 1024, then a GP round of which 256 are consumed
+CLI_TRIALS = 1040  # one random round of 1024, then a GP round of which 16 are consumed
 CLI_WORKERS = 8
-CLI_WORKER_TRIALS = 3072
+CLI_WORKER_TRIALS = 1280
 #: The kernel's name in a profiler trace (``ops/csrc/gram.cu``).
 GRAM_KERNEL = "gram_kernel"
 
@@ -1110,12 +1137,13 @@ def _cli_command(*args):
     return [sys.executable, "-m", "orion_tpu_torch.cli", "hunt", *args]
 
 
-def run_cohort(commands, timeout):
+def run_cohort(commands, timeout, env=None):
     """Run each ``(argv, cwd)`` of ``commands`` at once, each in a session of
-    its own; wait for all.  Any process still running at ``timeout`` (or
-    after a failure here) is killed with everything it started.  Returns
-    the wall seconds; raises on a nonzero exit code."""
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    its own, with ``env`` added to the environment; wait for all.  Any
+    process still running at ``timeout`` (or after a failure here) is killed
+    with everything it started.  Returns the wall seconds; raises on a
+    nonzero exit code."""
+    env = dict(os.environ, PYTHONPATH=ROOT, **(env or {}))
     procs = [subprocess.Popen(argv, env=env, cwd=cwd, stdout=subprocess.DEVNULL,
                               stderr=subprocess.PIPE, text=True, start_new_session=True)
              for argv, cwd in commands]
@@ -1281,7 +1309,7 @@ def phase_cli(device, tmp):
 #: with a narrower prior, each branching a child that runs ``EVC_TRIALS``
 #: trials of its own: v2 with ``x0 ~ uniform(0, 0.5)``, v3 with ``x1`` too.
 EVC_NARROWED = (0, 1)
-EVC_TRIALS = 256
+EVC_TRIALS = 128
 EVC_TREE = "cli-v1\n└── cli-v2\n    └── cli-v3\n"
 
 
@@ -1445,7 +1473,7 @@ def phase_evc(device, tmp):
 #: a ``/metrics`` port; (c) the flight recorder's dumps.
 TELEMETRY_ROUNDS = 6
 TELEMETRY_WORKERS = 4
-TELEMETRY_TRIALS = 2048
+TELEMETRY_TRIALS = 1280
 PROM_LINE = re.compile(
     r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*",?)*\})? '
     r'(-?[0-9.eE+-]+|\+Inf|-Inf|NaN)$')
@@ -1810,8 +1838,8 @@ def run_telemetry_dumps(tmp, device, fleet_db, algo=CLI_ALGO, timeout=120):
 
 def phase_telemetry(device, tmp, cli_workers_trials_per_s, fleet_off_first=False):
     """The telemetry plane: its cost on the main path, a four-worker hunt
-    with it off and on, and its dumps.  Returns ``fused_gram``'s
-    launches."""
+    with it off and on, and its dumps.  Returns ``fused_gram``'s launches
+    and the four workers' trials/s with telemetry on."""
     cost = run_telemetry_cost(device)
     emit("telemetry", run="cost", **cost)
     fleet = run_telemetry_fleet(tmp, device, off_first=fleet_off_first)
@@ -1819,8 +1847,510 @@ def phase_telemetry(device, tmp, cli_workers_trials_per_s, fleet_off_first=False
          cli_eight_workers_trials_per_s=cli_workers_trials_per_s, **fleet)
     dumps = run_telemetry_dumps(tmp, device, os.path.join(tmp, "telemetry", "telemetry.sqlite"))
     emit("telemetry", run="dumps", **dumps)
-    return {"cost": cost["fused_gram_launches"], "fleet": fleet["fused_gram_launches"],
-            "fleet_off": fleet["off"]["fused_gram_launches"]}
+    return ({"cost": cost["fused_gram_launches"], "fleet": fleet["fused_gram_launches"],
+             "fleet_off": fleet["off"]["fused_gram_launches"]}, fleet["trials_per_s"])
+
+
+#: The ``network`` phase: workers over ``orion-tpu-torch db serve`` (one
+#: server, then a replicated two-shard plane), the main path's width.
+NETWORK_WORKERS = 4
+NETWORK_TRIALS = TELEMETRY_TRIALS
+SHARD_WORKERS = 2
+SHARD_TRIALS = 2048
+#: A synchronous write waits this long for its replica's ack: a GP round
+#: registers q=1024 documents carrying their lineage (~37 MB), which the
+#: replica decodes and applies in seconds (the server's default is 2.0).
+QUORUM_TIMEOUT_S = 60.0
+
+
+@contextlib.contextmanager
+def _environ(**values):
+    """``os.environ`` with ``values`` set for the block (the in-process CLI
+    commands read the ``ORION_DB_*`` storage variables)."""
+    saved = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def compute_apps():
+    """The pids ``nvidia-smi --query-compute-apps`` lists.  They come from
+    the host's pid namespace: inside a container they need not match
+    ``os.getpid()``."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return sorted(int(p) for p in out.split() if p.strip().isdigit())
+
+
+def nvidia_files(pid):
+    """The ``/dev/nvidia*`` files process ``pid`` holds open or mapped."""
+    found = set()
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            target = os.readlink(os.path.join(fd_dir, fd))
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            found.add(target)
+    with open(f"/proc/{pid}/maps") as handle:
+        found.update(line.split()[-1] for line in handle if "/dev/nvidia" in line)
+    return sorted(found)
+
+
+class DBServers:
+    """``python3 -m orion_tpu_torch.cli db serve --host 127.0.0.1 --port 0
+    ...`` processes, each in a session of its own with the package root on
+    its ``PYTHONPATH`` and its output in ``<name>.log`` under ``run_dir``.
+    Leaving the block stops each with SIGINT (a clean shutdown, exit 0) and
+    kills whatever is left; a server that exits otherwise fails the
+    phase."""
+
+    def __init__(self, run_dir, device):
+        self.run_dir = run_dir
+        self.procs = {}
+        # This process holds a context before the count is taken: it is the
+        # positive control of check_host_only.
+        torch.zeros(1, device=device)
+        _sync(device)
+        self.apps_before = compute_apps()
+
+    def __enter__(self):
+        return self
+
+    def start(self, *servers, timeout=120):
+        """Start servers side by side, each given as ``(name, args)``;
+        returns their ``host:port`` from their listening lines (the OS
+        picks free ports)."""
+        logs = {}
+        for name, args in servers:
+            logs[name] = os.path.join(self.run_dir, f"{name}.log")
+            with open(logs[name], "w") as handle:
+                self.procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "orion_tpu_torch.cli", "db", "serve", "--host",
+                     "127.0.0.1", "--port", "0", *args],
+                    env=dict(os.environ, PYTHONPATH=ROOT, PYTHONUNBUFFERED="1",
+                             ORION_TPU_TELEMETRY="1"),
+                    cwd=self.run_dir, stdout=handle, stderr=subprocess.STDOUT,
+                    start_new_session=True)
+        t0, addresses = time.perf_counter(), {}
+        while len(addresses) < len(servers):
+            for name, _ in servers:
+                with open(logs[name]) as handle:
+                    text = handle.read()
+                match = re.search(r"listening on (\S+) ", text)
+                if match:
+                    addresses[name] = match.group(1)
+                elif self.procs[name].poll() is not None or time.perf_counter() - t0 > timeout:
+                    raise AssertionError(f"network: server {name} did not start "
+                                         f"(exit {self.procs[name].poll()}):\n{text[-3000:]}")
+            time.sleep(0.1)
+        return [addresses[name] for name, _ in servers]
+
+    def pids(self):
+        return {name: proc.pid for name, proc in self.procs.items()}
+
+    def check_host_only(self):
+        """No server ever initialized CUDA: none holds a ``/dev/nvidia*``
+        file open or mapped (CUDA opens them at a process's first call
+        into it; importing torch maps ``libcuda`` but opens none),
+        while this process, which holds a context, does; ``nvidia-smi``
+        lists as many compute apps as before the servers started, and none
+        of their pids.  Returns what ``nvidia-smi`` listed."""
+        if not nvidia_files(os.getpid()):
+            raise AssertionError("network: this process holds a CUDA context, yet no "
+                                 "/dev/nvidia* file shows in its /proc entries")
+        apps = compute_apps()
+        for name, pid in self.pids().items():
+            files = nvidia_files(pid)
+            if files or pid in apps:
+                raise AssertionError(f"network: server {name} (pid {pid}) initialized CUDA "
+                                     f"({files}; compute apps {apps})")
+        if len(apps) != len(self.apps_before):
+            raise AssertionError(f"network: {len(apps)} compute apps with the servers up, "
+                                 f"{len(self.apps_before)} before they started")
+        return apps
+
+    def __exit__(self, *exc_info):
+        failed = []
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+        for name, proc in self.procs.items():
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                rc = None
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            if rc != 0:
+                failed.append((name, rc))
+        if failed and exc_info[0] is None:
+            raise AssertionError(f"network: servers did not stop cleanly: {failed}")
+        return False
+
+
+def _secret_file(run_dir):
+    import secrets
+
+    path = os.path.join(run_dir, "net.secret")
+    with open(path, "w") as handle:
+        handle.write(secrets.token_hex(32) + "\n")
+    return path
+
+
+def _wire_ms(storage, exp_id, backend):
+    """Per-trial p50 ms of the workers' reservation and completion over the
+    wire, and of one wire round trip, from their merged telemetry."""
+    from orion_tpu_torch.telemetry import histogram_percentile, merge_snapshots
+
+    histograms = merge_snapshots(storage.fetch_metrics(exp_id)).get("histograms") or {}
+    out = {}
+    for key, name in (("reserve", f"storage.{backend}.reserve_trial"),
+                      ("complete", f"storage.{backend}.update_completed_trial"),
+                      ("rtt", "storage.network.rtt")):
+        hist = histograms.get(name)
+        if hist and hist.get("count"):
+            out[key] = {"p50_ms": histogram_percentile(hist, 50) * 1e3,
+                        "p99_ms": histogram_percentile(hist, 99) * 1e3,
+                        "count": hist["count"]}
+    return out
+
+
+def _check_fleet(name, storage, log, prof, max_trials, device):
+    """A hunt's trials in ``storage``: the objectives, no trial run twice
+    (the user script logs each execution), completed equal to the distinct
+    executions, and the kernel launched at ``MAIN_SHAPE`` in the workers'
+    traces."""
+    exp_id, trials = _fetch_trials(storage, name)
+    done, values, err = check_cli_trials(f"network {name}", trials, max_trials, device)
+    with open(log) as handle:
+        executed = handle.read().split()
+    if len(executed) != len(set(executed)):
+        raise AssertionError(f"network {name}: {len(executed)} executions of "
+                             f"{len(set(executed))} distinct trials")
+    if {t.id for t in done} != set(executed):
+        raise AssertionError(f"network {name}: {len(done)} completed trials against "
+                             f"{len(set(executed))} executed")
+    per_worker = read_traces(prof)
+    shapes = collections.Counter()
+    for worker in per_worker:
+        shapes.update(worker["launch_shapes"])
+    main = "x".join(map(str, MAIN_SHAPE))
+    if shapes[main] < 1:
+        raise AssertionError(f"network {name}: fused_gram launched at {dict(shapes)} "
+                             f"(none at {main})")
+    return {"exp_id": exp_id, "trials": trials, "done": done, "values": values, "err": err,
+            "executed": executed, "per_worker": per_worker, "launch_shapes": dict(shapes),
+            "launches": sum(w["fused_gram_launches"] for w in per_worker)}
+
+
+def run_network_server(tmp, device, workers=NETWORK_WORKERS, max_trials=NETWORK_TRIALS,
+                       q=CLI_Q, algo=CLI_ALGO, timeout=400):
+    """(a) ``db serve`` with ``--persist`` SQLite and a secret file; ``hunt
+    --n-workers 4 --profile`` with ``telemetry: true`` through
+    ``ORION_DB_TYPE=network``, ``ORION_DB_ADDRESS`` and
+    ``ORION_DB_SECRET_FILE``; then every completion read back from the
+    server, ``audit`` and ``trace --distributed`` (server spans joined),
+    and after the server's clean shutdown from its SQLite file."""
+    import yaml
+
+    from orion_tpu_torch.storage.base import create_storage
+
+    run_dir = os.path.join(tmp, "network")
+    os.makedirs(run_dir)
+    secret = _secret_file(run_dir)
+    persist = os.path.join(run_dir, "net.sqlite")
+    unseeded = {k: v for k, v in algo.items() if k != "seed"}
+    script, _ = write_cli_files(run_dir, unseeded)
+    config = os.path.join(run_dir, "net.yaml")
+    with open(config, "w") as handle:
+        yaml.safe_dump({"telemetry": True, "algorithms": {"tpu_bo": unseeded}}, handle)
+    log, prof = os.path.join(run_dir, "executions.log"), os.path.join(run_dir, "profile")
+    with DBServers(run_dir, device) as servers:
+        [address] = servers.start(("server", ["--persist", persist, "--secret-file", secret]))
+        env = {"ORION_DB_TYPE": "network", "ORION_DB_ADDRESS": address,
+               "ORION_DB_SECRET_FILE": secret}
+        wall_s = run_cohort([(_cli_command(
+            "-n", "net", "-c", config, "--pool-size", str(q), "--max-trials", str(max_trials),
+            "--n-workers", str(workers), "--profile", prof, "--device", device.type, script,
+            *CLI_PRIORS, "--log", log), run_dir)], timeout, env=env)
+        storage = create_storage({"type": "network", "address": address,
+                                  "secret_file": secret})
+        t0 = time.perf_counter()
+        fleet = _check_fleet("net", storage, log, prof, max_trials, device)
+        check_ms = (time.perf_counter() - t0) * 1e3
+        served = {d["_id"] for d in storage.db.read(
+            "trials", {"experiment": fleet["exp_id"], "status": "completed"},
+            projection={"_id": 1})}
+        if served != set(fleet["executed"]):
+            raise AssertionError(f"network: {len(served)} completions read back from the "
+                                 f"server, {len(set(fleet['executed']))} acknowledged")
+        with _environ(**env):
+            audit_rc, audit_out, audit_ms = _cli_output(["audit", "-n", "net"])
+            chrome = os.path.join(run_dir, "trace.json")
+            trace_rc, _, trace_ms = _cli_output(["trace", "-n", "net", "--distributed",
+                                                 "--out", chrome])
+        with open(chrome) as handle:
+            events = json.load(handle)["traceEvents"]
+        server_spans = collections.Counter(
+            (e.get("args") or {}).get("op") for e in events if e.get("name") == "netdb.apply")
+        if audit_rc != 0 or trace_rc != 0 or not server_spans:
+            raise AssertionError(f"network: audit exited {audit_rc}, trace --distributed "
+                                 f"{trace_rc} with {dict(server_spans)} server spans:\n"
+                                 f"{audit_out}")
+        wire = _wire_ms(storage, fleet["exp_id"], "network")
+        compute_apps = servers.check_host_only()
+        server_pids = servers.pids()
+    t0 = time.perf_counter()
+    durable = {d["_id"] for d in create_storage({"type": "sqlite", "path": persist}).db.read(
+        "trials", {"experiment": fleet["exp_id"], "status": "completed"},
+        projection={"_id": 1})}
+    durable_ms = (time.perf_counter() - t0) * 1e3
+    if durable != served:
+        raise AssertionError(f"network: {len(durable)} completions in the server's SQLite "
+                             f"file after shutdown, {len(served)} served")
+    return {"workers": workers, "q": q, "trials": len(fleet["trials"]),
+            "completed": len(fleet["done"]), "executed": len(fleet["executed"]),
+            "executed_distinct": len(set(fleet["executed"])), "read_back": len(served),
+            "durable": len(durable), "wall_s": wall_s,
+            "trials_per_s": len(fleet["done"]) / wall_s,
+            "regret": float(fleet["values"].min()) - GLOBAL_MIN,
+            "objective_max_abs_err": fleet["err"], "wire_ms_per_trial": wire,
+            "check_ms": check_ms, "audit_ms": audit_ms, "trace_ms": trace_ms,
+            "durable_ms": durable_ms,
+            "server_spans_by_op": dict(server_spans), "server_pids": server_pids,
+            "compute_apps": compute_apps, "fused_gram_launches": fleet["launches"],
+            "launch_shapes": fleet["launch_shapes"], "per_worker": fleet["per_worker"]}
+
+
+def _shard_names(primaries, count=2):
+    """``count`` experiment names the ring puts on different shards (the
+    CLI's experiment ids: name, version 1, this user)."""
+    from orion_tpu_torch.cli.base import _default_user
+    from orion_tpu_torch.core.experiment import experiment_id
+    from orion_tpu_torch.storage.shard import HashRing
+
+    ring, names, taken = HashRing(primaries), [], set()
+    for k in range(1000):
+        name = f"plane-{k}"
+        index = ring.lookup(experiment_id(name, 1, _default_user()))
+        if index not in taken:
+            taken.add(index)
+            names.append((name, index))
+        if len(names) == count:
+            return names
+    raise AssertionError("network: no names on distinct shards")
+
+
+def _seq(address, secret):
+    from orion_tpu_torch.storage.netdb import NetworkDB
+
+    host, _, port = address.rpartition(":")
+    client = NetworkDB(host=host, port=int(port), secret=secret, timeout=30.0)
+    try:
+        return client, client._call("seq")
+    except BaseException:
+        client.close()
+        raise
+
+
+def run_network_shards(tmp, device, workers=SHARD_WORKERS, max_trials=SHARD_TRIALS, q=CLI_Q,
+                       algo=CLI_ALGO, timeout=600):
+    """(b) Two primaries persisted to SQLite, each replicating to one
+    replica with ``--quorum 1``; a ``shards:`` stanza in the hunts' config;
+    two experiments that ``db ring`` places on different shards, hunted at
+    once by two workers each.  Each experiment's completions read back from
+    its shard's primary and, once the replica's seq equals the primary's,
+    from the replica; ``db status --json`` (both roles, lag 0, quorum 1),
+    ``audit --all`` with the topology line, ``metrics`` (the router's stale
+    reads and failovers)."""
+    import yaml
+
+    from orion_tpu_torch.storage.base import create_storage
+
+    run_dir = os.path.join(tmp, "shards")
+    os.makedirs(run_dir)
+    secret_path = _secret_file(run_dir)
+    with open(secret_path) as handle:
+        secret = handle.read().strip()
+    unseeded = {k: v for k, v in algo.items() if k != "seed"}
+    script, _ = write_cli_files(run_dir, unseeded)
+    quorum = ["--quorum", "1", "--quorum-timeout", str(QUORUM_TIMEOUT_S),
+              "--secret-file", secret_path]
+    with DBServers(run_dir, device) as servers:
+        replicas = servers.start(*[
+            (f"replica{i}", ["--replica", "--persist",
+                             os.path.join(run_dir, f"replica{i}.sqlite"), *quorum])
+            for i in range(2)])
+        primaries = servers.start(*[
+            (f"primary{i}", ["--replicate-to", replicas[i], "--persist",
+                             os.path.join(run_dir, f"primary{i}.sqlite"), *quorum])
+            for i in range(2)])
+        storage_config = {"type": "network", "secret_file": secret_path,
+                          "shards": [{"address": p, "replicas": [r]}
+                                     for p, r in zip(primaries, replicas)]}
+        config = os.path.join(run_dir, "plane.yaml")
+        with open(config, "w") as handle:
+            yaml.safe_dump({"telemetry": True, "storage": storage_config,
+                            "algorithms": {"tpu_bo": unseeded}}, handle)
+        names = _shard_names(primaries)
+        commands = []
+        for name, _ in names:
+            commands.append((_cli_command(
+                "-n", name, "-c", config, "--pool-size", str(q), "--max-trials",
+                str(max_trials), "--n-workers", str(workers), "--profile",
+                os.path.join(run_dir, f"profile-{name}"), "--device", device.type, script,
+                *CLI_PRIORS, "--log", os.path.join(run_dir, f"executions-{name}.log")),
+                run_dir))
+        wall_s = run_cohort(commands, timeout)
+        ring_rc, ring_out, _ = _cli_output(["db", "ring", "-c", config])
+        storage = create_storage(storage_config)
+        router = storage.db
+        per_experiment = {}
+        for name, index in names:
+            fleet = _check_fleet(name, storage, os.path.join(run_dir, f"executions-{name}.log"),
+                                 os.path.join(run_dir, f"profile-{name}"), max_trials, device)
+            placed = re.search(rf"  {name} v1 \(\S+\) -> shard (\d+)", ring_out)
+            if router.shard_for(fleet["exp_id"]) != index or not placed \
+                    or int(placed.group(1)) != index:
+                raise AssertionError(f"network: {name} not on shard {index}:\n{ring_out}")
+            acknowledged = set(fleet["executed"])
+            primary, primary_seq = _seq(primaries[index], secret)
+            replica, replica_seq = _seq(replicas[index], secret)
+            t0 = time.perf_counter()
+            while replica_seq["seq"] != primary_seq["seq"]:
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError(f"network: replica {index} at seq {replica_seq} "
+                                         f"behind primary {primary_seq}")
+                time.sleep(0.2)
+                primary_seq, replica_seq = primary._call("seq"), replica._call("seq")
+            read_back = {}
+            for role, client in (("primary", primary), ("replica", replica)):
+                read_back[role] = {d["_id"] for d in client.read(
+                    "trials", {"experiment": fleet["exp_id"], "status": "completed"},
+                    projection={"_id": 1})}
+                client.close()
+            if read_back["primary"] != acknowledged or read_back["replica"] != acknowledged:
+                raise AssertionError(
+                    f"network {name}: {len(acknowledged)} acknowledged completions, "
+                    f"{len(read_back['primary'])} on the primary, "
+                    f"{len(read_back['replica'])} on the replica")
+            rc, body, _ = _cli_output(["metrics", "-n", name, "-c", config])
+            merged = parse_exposition(body)
+            shard_counters = {k: v for k, v in merged.items() if "storage_shard_" in k
+                              and k.endswith("_total")}
+            per_experiment[name] = {
+                "shard": index, "trials": len(fleet["trials"]),
+                "completed": len(fleet["done"]), "executed": len(fleet["executed"]),
+                "executed_distinct": len(acknowledged),
+                "read_back_primary": len(read_back["primary"]),
+                "read_back_replica": len(read_back["replica"]), "seq": primary_seq["seq"],
+                "regret": float(fleet["values"].min()) - GLOBAL_MIN,
+                "objective_max_abs_err": fleet["err"],
+                "wire_ms_per_trial": _wire_ms(storage, fleet["exp_id"], "shard"),
+                "metrics_rc": rc, "shard_counters": shard_counters,
+                "fused_gram_launches": fleet["launches"],
+                "launch_shapes": fleet["launch_shapes"], "per_worker": fleet["per_worker"]}
+            if rc != 0 or not any("replica_stale_reads" in k for k in shard_counters) \
+                    or not any("failovers" in k for k in shard_counters):
+                raise AssertionError(f"network {name}: metrics exited {rc}, shard counters "
+                                     f"{shard_counters}")
+        t0 = time.perf_counter()
+        while True:
+            status_rc, status_out, _ = _cli_output(["db", "status", "--json", "-c", config])
+            shards = json.loads(status_out)["shards"]
+            lags = [r.get("lag") for s in shards for r in s.get("replicas", ())]
+            if lags == [0, 0] or time.perf_counter() - t0 > 60:
+                break
+            time.sleep(0.5)
+        if (status_rc != 0 or [s.get("role") for s in shards] != ["primary", "primary"]
+                or [s.get("quorum") for s in shards] != [1, 1] or lags != [0, 0]):
+            raise AssertionError(f"network: db status {status_rc}: {status_out}")
+        audit_rc, audit_out, audit_ms = _cli_output(["audit", "--all", "-c", config])
+        if audit_rc != 0 or not audit_out.startswith("storage: 2 shard(s) ["):
+            raise AssertionError(f"network: audit --all exited {audit_rc}:\n{audit_out}")
+        admin = run_network_admin(run_dir, names[0][0], primaries[names[0][1]], secret_path)
+        compute_apps = servers.check_host_only()
+        server_pids = servers.pids()
+    done = sum(e["completed"] for e in per_experiment.values())
+    return {"shards": 2, "replicas_per_shard": 1, "quorum": 1,
+            "quorum_timeout_s": QUORUM_TIMEOUT_S, "workers_per_experiment": workers, "q": q,
+            "wall_s": wall_s, "trials_per_s": done / wall_s, "experiments": per_experiment,
+            "status": shards, "audit_ms": audit_ms,
+            "audit_topology": audit_out.splitlines()[0], "server_pids": server_pids,
+            "compute_apps": compute_apps,
+            "fused_gram_launches": sum(e["fused_gram_launches"]
+                                       for e in per_experiment.values())}, admin
+
+
+def run_network_admin(plane_dir, name, address, secret_path):
+    """(c) ``db dump`` of the shard primary that holds experiment ``name``
+    (the only one there), ``db load`` into a fresh SQLite file, its trial
+    documents equal to the primary's in canonical form; ``db copy`` of that
+    file, ``db migrate-ids`` on the copy and a clean ``audit``; ``info``
+    prints its sections."""
+    from orion_tpu_torch.storage.base import create_storage
+    from orion_tpu_torch.storage.documents import dumps_canonical
+
+    run_dir = os.path.join(plane_dir, "admin")
+    os.makedirs(run_dir)
+    dump, loaded = os.path.join(run_dir, "dump.jsonl"), os.path.join(run_dir, "loaded.sqlite")
+    copied = os.path.join(run_dir, "copied.sqlite")
+    timings = {}
+    with _environ(ORION_DB_SECRET_FILE=secret_path):
+        for key, argv in (("dump", ["db", "dump", "--src", address, "--out", dump]),
+                          ("load", ["db", "load", "--src", dump, "--dst", loaded]),
+                          ("copy", ["db", "copy", "--src", loaded, "--dst", copied]),
+                          ("migrate_ids", ["db", "migrate-ids", "--storage-path", copied])):
+            rc, out, timings[key] = _cli_output(argv)
+            if rc != 0:
+                raise AssertionError(f"network: {' '.join(argv[:2])} exited {rc}:\n{out}")
+        primary = create_storage({"type": "network", "address": address})
+        original = sorted(dumps_canonical(d) for d in primary.db.read("trials"))
+    reloaded = sorted(dumps_canonical(d) for d in create_storage(
+        {"type": "sqlite", "path": loaded}).db.read("trials"))
+    if original != reloaded or not original:
+        raise AssertionError(f"network: {len(reloaded)} trial documents loaded of "
+                             f"{len(original)} on the primary, or they differ")
+    storage = create_storage({"type": "sqlite", "path": copied})
+    [exp] = storage.fetch_experiments({})
+    migrated = storage.db.read("trials", {"experiment": exp["_id"]})
+    old_ids = {json.loads(d)["_id"] for d in original}
+    audit_rc, audit_out, timings["audit"] = _cli_output(["audit", "-n", name,
+                                                         "--storage-path", copied])
+    info_rc, info_out, timings["info"] = _cli_output(["info", "-n", name,
+                                                      "--storage-path", copied])
+    sections = re.findall(r"\n([A-Z][\w -]+)\n=+\n", info_out)
+    if (exp["name"] != name or exp.get("id_scheme") != "cube_hash"
+            or old_ids & {d["_id"] for d in migrated} or len(migrated) != len(original)
+            or audit_rc != 0 or info_rc != 0 or "Stats" not in sections):
+        raise AssertionError(f"network: migrate-ids left scheme {exp.get('id_scheme')}, "
+                             f"{len(migrated)} trials; audit {audit_rc}: {audit_out}; "
+                             f"info {info_rc}: {sections}")
+    return {"experiment": name, "trial_documents": len(original),
+            "dump_bytes": os.path.getsize(dump), "id_scheme": exp["id_scheme"],
+            "info_sections": sections, "ms": timings}
+
+
+def phase_network(device, tmp, telemetry_trials_per_s):
+    """Networked and sharded storage: workers over one server, over a
+    replicated two-shard plane, and the ``db`` administration commands.
+    Returns ``fused_gram``'s launches in each run."""
+    server = run_network_server(tmp, device)
+    emit("network", run="server", storage="network+sqlite",
+         telemetry_four_workers_sqlite_trials_per_s=telemetry_trials_per_s, **server)
+    plane, admin = run_network_shards(tmp, device)
+    emit("network", run="shards", storage="2 shards x (primary + replica), sqlite", **plane)
+    emit("network", run="admin", **admin)
+    return {"server": server["fused_gram_launches"], "shards": plane["fused_gram_launches"]}
 
 
 def main():
@@ -1849,9 +2379,10 @@ def main():
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         cli_launches, cli_workers_trials_per_s = run("cli", phase_cli, device, tmp)
         evc_launches = run("evc", phase_evc, device, tmp)
-        telemetry_launches = run("telemetry", phase_telemetry, device, tmp,
-                                 cli_workers_trials_per_s,
-                                 fleet_off_first="--fleet-off-first" in sys.argv[1:])
+        telemetry_launches, telemetry_trials_per_s = run(
+            "telemetry", phase_telemetry, device, tmp, cli_workers_trials_per_s,
+            fleet_off_first="--fleet-off-first" in sys.argv[1:])
+        network_launches = run("network", phase_network, device, tmp, telemetry_trials_per_s)
     emit("seconds", **seconds)
 
     def case(shape):
@@ -1866,12 +2397,14 @@ def main():
         "replaces": "orion_tpu/ops/gram.py:68",
         "launches": (launches["fused_gram"] + asha_bo_launches + hunt_launches
                      + sum(cli_launches.values()) + evc_launches
-                     + sum(telemetry_launches.values())),
+                     + sum(telemetry_launches.values()) + sum(network_launches.values())),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
                              "hunt": hunt_launches, "cli": sum(cli_launches.values()),
                              "cli_runs": cli_launches, "evc": evc_launches,
                              "telemetry": sum(telemetry_launches.values()),
-                             "telemetry_runs": telemetry_launches},
+                             "telemetry_runs": telemetry_launches,
+                             "network": sum(network_launches.values()),
+                             "network_runs": network_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -12,8 +12,8 @@ A failed audit dumps a flight-record artifact (``--flight-out PATH``, or
 ``flight-audit-<experiment>.jsonl`` with the flight recorder on): the
 recent event ring plus one ``audit.violation`` event per violation.
 
-Left out: the ``--all`` shard-topology line, which none of the port's
-storages has (ROADMAP queue A item 7).
+``--all`` over a sharded store prints the topology line first and labels
+each report with the shard its experiment lives on.
 """
 
 from orion_tpu_torch.cli.base import add_experiment_args, build_from_args
@@ -109,11 +109,22 @@ def main(args):
         timeout = args.timeout
         if timeout is None:
             timeout = config.get("heartbeat")
+        from orion_tpu_torch.cli.base import describe_storage_topology
+
+        topology = describe_storage_topology()
+        if topology is not None:
+            # The --all sweep resolved through the sharded router: every
+            # shard's experiments are in the report set, and each one is
+            # labeled with its ring placement below.
+            print(topology)
         reports = audit_storage(storage, lost_timeout=timeout)
         if not reports:
             print("no experiments in storage")
             return 0
+        shard_for = getattr(storage.db, "shard_for", None)
         for report in reports:
+            if shard_for is not None:
+                print(f"[shard {shard_for(report.experiment_id)}]", end=" ")
             print(report.summary())
         failed = [r for r in reports if not r.ok]
         for report in failed:

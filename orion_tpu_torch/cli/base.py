@@ -1,6 +1,7 @@
 """Shared CLI argument groups and experiment bootstrapping (port of
-``orion_tpu/cli/base.py``; the ``--all`` fleet helpers wait for the commands
-that use them, ROADMAP queue A item 7).  ``load_cli_config`` layers the
+``orion_tpu/cli/base.py``, with the ``--all`` fleet helpers over every
+experiment and the sharded topology; the serve-fleet probe waits for the
+gateway, ROADMAP queue A item 8).  ``load_cli_config`` layers the
 ``telemetry:`` and ``metrics_port:`` keys onto the process, as the
 reference does.
 
@@ -143,6 +144,78 @@ def _default_user():
         return getpass.getuser()
     except Exception:  # pragma: no cover - no passwd entry
         return os.environ.get("USER", "unknown")
+
+
+def build_all_experiments(args, view=True):
+    """``--all`` resolution shared by audit/top/info: the name-less
+    config/storage bootstrap, then EVERY experiment in the store built for
+    read-only inspection (a gateway hosts many tenants; fleet commands must
+    not require ``-n NAME`` per experiment).  Sorted by (name, version)."""
+    from orion_tpu_torch.core.experiment import ExperimentView
+
+    config = load_cli_config(args)
+    storage = setup_storage(config["storage"], force=True)
+    docs = storage.fetch_experiments({})
+    experiments = []
+    for doc in sorted(docs, key=lambda d: (d["name"], d.get("version", 1))):
+        experiment = build_experiment(
+            storage, doc["name"], version=doc.get("version")
+        )
+        if view:
+            experiment = ExperimentView(experiment)
+        experiments.append(experiment)
+    return experiments
+
+
+def describe_storage_topology(probe=False):
+    """One-line sharded-topology summary of the ACTIVE storage singleton
+    (``audit``/``info``/``top`` fleet views print it so an operator can
+    tell at a glance WHICH plane answered), or None when the storage is
+    not the consistent-hash router.
+
+    ``probe=True`` additionally probes every shard node's replication
+    position (one tiny ``seq`` request each) and annotates each shard
+    with its current epoch and worst replica lag (``ep2 lag:3``) — the
+    first thing an operator needs when a promotion or a lagging replica
+    is suspected.  Probing also publishes the ``netdb.replication.lag.*``
+    gauges."""
+    from orion_tpu_torch.storage.base import _storage_singleton
+
+    db = getattr(_storage_singleton, "db", None)
+    describe = getattr(db, "describe_topology", None)
+    if describe is None:
+        return None
+    topology = describe()
+    health = {}
+    if probe:
+        replication_health = getattr(db, "replication_health", None)
+        if replication_health is not None:
+            try:
+                health = {h["index"]: h for h in replication_health()}
+            except Exception:  # pragma: no cover - a dead fleet still renders
+                health = {}
+    parts = []
+    for shard in topology["shards"]:
+        part = f"s{shard['index']}={shard['address']}"
+        if shard["replicas"]:
+            part += f"(+{len(shard['replicas'])}r)"
+        probed = health.get(shard["index"])
+        if probed is not None:
+            if probed.get("epoch"):
+                part += f" ep{probed['epoch']}"
+            if probed.get("max_lag") is not None:
+                part += f" lag:{probed['max_lag']}"
+            if probed.get("error"):
+                part += " DOWN"
+            elif probed.get("primary") != shard["address"]:
+                # A promoted replica serves this shard now.
+                part += f"->{probed['primary']}"
+        parts.append(part)
+    return (
+        f"storage: {len(topology['shards'])} shard(s) [{', '.join(parts)}] "
+        f"vnodes={topology['vnodes']} replica_reads="
+        f"{'on' if topology['replica_reads'] else 'off'}"
+    )
 
 
 def build_from_args(args, need_user_args=True, allow_create=True, view=False):

@@ -99,9 +99,17 @@ DEFAULTS = {
     # base_delay, max_delay, multiplier, jitter, deadline — the
     # RetryPolicy defaults apply for any omitted key; docs/robustness.md);
     # `retry: false` disables storage-level retries entirely.
-    # The reference's `network` type (and its `shards:` stanza, also set by
-    # the ORION_DB_SHARDS env var) resolves here as it does there and is
-    # refused by create_storage until it is ported (ROADMAP queue A item 7).
+    # A network storage section may also carry the sharded-topology stanza
+    # (docs/multi_node.md): `shards:` — a list of "host:port" strings or
+    # {address|host/port, replicas: [...]} dicts (consistent-hash routing
+    # on experiment id, read-replica fan-out) — plus the router knobs
+    # `vnodes`, `replica_reads`, `shard_retry`, `reconnect_jitter`.  The
+    # ORION_DB_SHARDS env var carries the replica-less spelling, and
+    # ORION_DB_SECRET_FILE / ORION_DB_SECRET the shared secret.
+    # storage.quorum is the SERVER-side replication-ack floor (`db serve
+    # --quorum N`): synchronous collections (experiments/trials/placement)
+    # acknowledge a write only after N replicas confirmed it;
+    # telemetry/health stay async.
     "storage": {"type": "pickled", "path": "orion_tpu_db.pkl", "retry": {}},
     # Framework telemetry (orion_tpu_torch.telemetry): None = leave the
     # ORION_TPU_TELEMETRY env decision alone; true/false switches the

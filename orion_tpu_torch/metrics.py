@@ -32,7 +32,7 @@ scrape configuration reads either package's workers.
 Left out, each with the ROADMAP queue A item that brings it:
 
 - a scrape's refresh of the device-memory and compiler-plane gauges
-  (item 6) and of the replication-lag gauges (item 7);
+  (item 6);
 - the doctor: ``doctor.findings.<RULE>`` gauges still export as one
   labelled family, but every rule's severity reads ``unknown`` (the
   reference's answer when its diagnosis package fails to import), and the
@@ -186,6 +186,11 @@ class _MetricsHandler(http.server.BaseHTTPRequestHandler):
 
     def do_GET(self):  # noqa: N802 - http.server contract
         if self.path.split("?", 1)[0] == "/metrics":
+            # Replication-lag gauges for any sharded router this process
+            # holds (rate-limited internally; one tiny seq probe per node).
+            from orion_tpu_torch.storage.shard import sample_replication_lag
+
+            sample_replication_lag()
             body = render_exposition(self.server.registry.snapshot()).encode()
             content_type = "text/plain; version=0.0.4; charset=utf-8"
         elif self.path.split("?", 1)[0] == "/healthz":

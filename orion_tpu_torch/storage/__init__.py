@@ -10,9 +10,14 @@ Backends of the port:
   (:func:`orion_tpu_torch.convert.storage_from_jax`).
 - ``sqlite`` — one SQLite file, row-level transactions; files cross between
   the two packages in both directions.
+- ``network`` — :class:`~orion_tpu_torch.storage.netdb.NetworkDB`, a client
+  of an ``orion-tpu-torch db serve`` process (or of the reference's server:
+  the wire is the same), with replication and a quorum on the server side.
+- ``shards:`` — :class:`~orion_tpu_torch.storage.shard.ShardedNetworkDB`,
+  the consistent-hash router over replicated network shards.
 
-The reference's ``network`` backend, its sharded router and fault injection
-are ROADMAP queue A item 7; the audit is :mod:`orion_tpu_torch.storage.audit`.
+Rebalancing, draining, backup and fault injection are ROADMAP queue A item
+7b; the audit is :mod:`orion_tpu_torch.storage.audit`.
 """
 
 from orion_tpu_torch.storage.backends import PickledDB
@@ -25,15 +30,21 @@ from orion_tpu_torch.storage.base import (
     setup_storage,
 )
 from orion_tpu_torch.storage.documents import MemoryDB
+from orion_tpu_torch.storage.netdb import DBServer, NetworkDB
 from orion_tpu_torch.storage.retry import RetryPolicy, is_transient
+from orion_tpu_torch.storage.shard import HashRing, ShardedNetworkDB
 
 __all__ = [
     "BaseStorage",
+    "DBServer",
     "DocumentStorage",
+    "HashRing",
     "MemoryDB",
+    "NetworkDB",
     "PickledDB",
     "ReadOnlyStorage",
     "RetryPolicy",
+    "ShardedNetworkDB",
     "create_storage",
     "get_storage",
     "is_transient",

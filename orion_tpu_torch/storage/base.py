@@ -1,6 +1,7 @@
 """Storage protocol: every coordination primitive workers rely on (port of
-``orion_tpu/storage/base.py`` over the three local backends, ``memory``,
-``pickled`` and ``sqlite``, with the reference's telemetry: a span and a
+``orion_tpu/storage/base.py`` over the local backends ``memory``,
+``pickled`` and ``sqlite``, the ``network`` client and the sharded router
+of ``shards:``, with the reference's telemetry: a span and a
 ``storage.<backend>.<op>`` histogram per hot-path op, the backends' own
 counters, the ``trial.status`` flight event, and the metrics and spans
 channels the workers flush through).
@@ -194,18 +195,29 @@ INDEX_SPECS = [
 
 
 #: Telemetry label per backend class; unknown (third-party) backends fall
-#: back to their lowercased class name.  The network and sharded backends
-#: (ROADMAP queue A item 7) bring their labels with them.
+#: back to their lowercased class name.
 _BACKEND_LABELS = {
     "MemoryDB": "memory",
     "PickledDB": "pickled",
     "SQLiteDB": "sqlite",
+    "NetworkDB": "network",
+    "ShardedNetworkDB": "shard",
 }
 
 #: Backend-maintained monotonic counters re-exported through the telemetry
-#: registry (sampled at snapshot time — zero hot-path cost).  Backends that
-#: lack an attribute skip it.
-_BACKEND_COUNTER_ATTRS = ("txn_count",)
+#: registry (sampled at snapshot time — zero hot-path cost).  The sharded
+#: router adds its read-path health counters (failovers to a primary,
+#: stale replica reads, cross-shard fan-outs); other backends simply lack
+#: the attributes and skip them.
+_BACKEND_COUNTER_ATTRS = (
+    "txn_count",
+    "wire_requests",
+    "round_trips",
+    "reconnects",
+    "failovers",
+    "replica_stale_reads",
+    "fan_outs",
+)
 
 
 def _traced(op, span_name=None, retry=MODE_ALWAYS):
@@ -429,19 +441,26 @@ class DocumentStorage(BaseStorage):
         return Trial.from_dict(doc) if doc else None
 
     def _db_batch_capable(self):
-        """True when the backend offers the batching primitive
-        ``apply_batch`` (both of the port's backends do; a third-party
-        backend without it gets the per-op loops).  The reference also
-        takes the network backend's ``pipeline``, which comes with that
-        backend (ROADMAP queue A item 7)."""
-        return getattr(self._db, "apply_batch", None) is not None
+        """True when the backend offers a batching primitive — THE
+        capability predicate every batch op keys on (so a third primitive
+        added to :meth:`_db_batch` is recognized everywhere at once)."""
+        return (
+            getattr(self._db, "apply_batch", None) is not None
+            or getattr(self._db, "pipeline", None) is not None
+        )
 
     def _db_batch(self, ops):
-        """One backend round for ``[(op, args, kwargs), ...]`` (one lock
-        hold on ``memory``, one lock/load/dump cycle on ``pickled``):
-        one outcome per op, exception instances included.  Callers check
-        :meth:`_db_batch_capable` first and loop per-op otherwise."""
-        return self._db.apply_batch(ops)
+        """One backend round for ``[(op, args, kwargs), ...]`` through the
+        cheapest primitive the backend offers: ``apply_batch`` (one
+        transaction / one wire request), else ``pipeline`` (N request
+        lines in ~1 RTT, network client).  Callers check
+        :meth:`_db_batch_capable` first and loop per-op otherwise.  Either
+        primitive returns one outcome per op, exception instances
+        included."""
+        apply_batch = getattr(self._db, "apply_batch", None)
+        if apply_batch is not None:
+            return apply_batch(ops)
+        return self._db.pipeline(ops)
 
     @_traced("reserve_trials", retry=MODE_ALWAYS)
     def reserve_trials(self, experiment, num):
@@ -1074,12 +1093,68 @@ class ReadOnlyStorage:
         return getattr(self._storage, name)
 
 
+def _parse_network_address(config):
+    """(host, port) from a network-storage config; ``address``/``path`` may
+    carry ``host[:port]`` (the ORION_DB_ADDRESS env form)."""
+    host = config.get("host", "127.0.0.1")
+    port = config.get("port", 8765)
+    address = config.get("address")
+    if not address and "host" not in config and "port" not in config:
+        # `path` doubles as ORION_DB_ADDRESS, but only when host/port are not
+        # given: the layered config merge leaks the DEFAULTS pickled path into
+        # a network storage section, and it must not hijack the address.
+        address = config.get("path")
+    if address:
+        address = str(address)
+        if ":" in address:
+            host, _, port = address.rpartition(":")
+            if not host or not port:
+                raise DatabaseError(
+                    f"bad network DB address {address!r}; expected host:port"
+                )
+        else:
+            host = address
+    return host, int(port)
+
+
+def resolve_wire_secret(config, env_prefix="ORION_DB", what="network DB"):
+    """Shared secret for an authenticated wire surface: explicit config
+    value, a secret file (config or ``{env_prefix}_SECRET_FILE``), or
+    ``{env_prefix}_SECRET``.  None = unauthenticated client (open/
+    localhost servers).  Shared by the netdb client (``ORION_DB``) and
+    the suggest gateway client (``ORION_SERVE``) so the two wire planes
+    resolve credentials identically."""
+    import os
+
+    if config.get("secret") is not None:
+        return str(config["secret"])
+    path = config.get("secret_file") or os.getenv(f"{env_prefix}_SECRET_FILE")
+    if path:
+        try:
+            with open(path) as handle:
+                secret = handle.read().strip()
+        except OSError as exc:
+            raise DatabaseError(
+                f"cannot read {what} secret file {path!r}: {exc} "
+                "(is the shared mount available on this node?)"
+            ) from exc
+        if not secret:
+            raise DatabaseError(f"{what} secret file {path!r} is empty")
+        return secret
+    return os.getenv(f"{env_prefix}_SECRET") or None
+
+
+def _resolve_network_secret(config):
+    return resolve_wire_secret(config, env_prefix="ORION_DB", what="network DB")
+
+
 def create_storage(config=None):
     """Build a storage instance from a config dict.
 
-    ``{"type": "memory"}``, ``{"type": "pickled", "path": ...}`` or
-    ``{"type": "sqlite", "path": ...}``; the reference's ``network`` type
-    (and with it ``shards:``) raises :class:`NotImplementedError`.
+    ``{"type": "memory"}``, ``{"type": "pickled", "path": ...}``,
+    ``{"type": "sqlite", "path": ...}`` or ``{"type": "network", "host":
+    ..., "port": ...}`` (``address: host:port``; a ``shards:`` stanza routes
+    through :class:`~orion_tpu_torch.storage.shard.ShardedNetworkDB`).
     A ``retry`` sub-dict tunes the unified retry policy knobs
     (``max_attempts``/``base_delay``/``max_delay``/``multiplier``/
     ``jitter``/``deadline`` — docs/robustness.md); ``retry: false``
@@ -1105,9 +1180,50 @@ def create_storage(config=None):
             retry=retry,
         )
     if db_type in ("network", "netdb"):
-        raise NotImplementedError(
-            f"storage type {db_type!r} is not ported yet (ROADMAP queue A "
-            "item 7); orion_tpu_torch has 'memory', 'pickled' and 'sqlite'"
+        from orion_tpu_torch.storage.netdb import NetworkDB
+
+        secret = _resolve_network_secret(config)
+        if config.get("shards"):
+            # Scale-out control plane: a `shards:` stanza routes this
+            # storage through the consistent-hash router (per-shard
+            # replicas ride inside each entry; docs/multi_node.md).
+            from orion_tpu_torch.storage.shard import (
+                DEFAULT_PROMOTE_AFTER_S,
+                PLACEMENT_TTL_S,
+                ShardedNetworkDB,
+            )
+
+            return DocumentStorage(
+                ShardedNetworkDB(
+                    config["shards"],
+                    vnodes=config.get("vnodes", 64),
+                    timeout=config.get("timeout", 60.0),
+                    secret=secret,
+                    reconnect_jitter=config.get("reconnect_jitter", 0.1),
+                    shard_retry=config.get("shard_retry"),
+                    replica_reads=config.get("replica_reads", True),
+                    # Self-healing knobs (docs/multi_node.md): automatic
+                    # replica promotion + its confirmation window, and the
+                    # placement-override cache TTL the rebalance fence
+                    # grace must cover.
+                    auto_promote=config.get("auto_promote", True),
+                    promote_after=config.get(
+                        "promote_after", DEFAULT_PROMOTE_AFTER_S
+                    ),
+                    placement_ttl=config.get("placement_ttl", PLACEMENT_TTL_S),
+                ),
+                retry=retry,
+            )
+        host, port = _parse_network_address(config)
+        return DocumentStorage(
+            NetworkDB(
+                host=host,
+                port=port,
+                timeout=config.get("timeout", 60.0),
+                secret=secret,
+                reconnect_jitter=config.get("reconnect_jitter", 0.1),
+            ),
+            retry=retry,
         )
     raise DatabaseError(f"Unknown storage type {db_type!r}")
 

@@ -417,8 +417,9 @@ def test_cli_lists_only_the_ported_commands(capsys):
     from orion_tpu_torch.cli import build_parser
 
     commands = build_parser()._subparsers._group_actions[0].choices
-    assert sorted(commands) == ["audit", "flight-record", "hunt", "init-only", "insert",
-                                "list", "metrics", "status", "trace"]
+    assert sorted(commands) == ["audit", "db", "flight-record", "hunt", "info", "init-only",
+                                "insert", "list", "metrics", "setup", "status", "test-db",
+                                "trace"]
     with pytest.raises(SystemExit):
         main(["--version"])
     assert capsys.readouterr().out.startswith("orion-tpu-torch ")
@@ -429,6 +430,19 @@ def test_hunt_refuses_unported_storage_and_memory_workers(tmp_path, capsys, monk
     rc, _, err = _run(main, ["hunt", "-n", "nw", "--debug", "--device", "cpu", "--max-trials",
                              "2", "--n-workers", "2", box, "-x~uniform(-5, 5)"], capsys)
     assert rc == 1 and "in-memory storage is per-process" in err
-    monkeypatch.setenv("ORION_DB_TYPE", "network")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(["hunt", "-n", "net", "--device", "cpu", box, "-x~uniform(-5, 5)"])
+    # The network storage is ported: the same hunt runs against a server.
+    from orion_tpu_torch.storage.netdb import DBServer
+
+    server = DBServer(port=0)
+    host, port = server.serve_background()
+    try:
+        monkeypatch.setenv("ORION_DB_TYPE", "network")
+        monkeypatch.setenv("ORION_DB_ADDRESS", f"{host}:{port}")
+        rc, out, _ = _run(main, ["hunt", "-n", "net", "--device", "cpu", "--max-trials", "2",
+                                 box, "-x~uniform(-5, 5)"], capsys)
+        assert rc == 0 and "trials completed: 2" in out
+        storage = create_storage({"type": "network", "host": host, "port": port})
+        assert [t[3] for t in _trials(storage, "net")] == ["completed", "completed"]
+    finally:
+        server.shutdown()
+        server.server_close()

@@ -443,3 +443,107 @@ def test_main_path_rows_equal_with_telemetry_on_and_off(cuda, telemetry_off_afte
     spans = telemetry.drain_spans()
     assert [(s["name"], s["args"]) for s in spans] == [
         ("suggest_step.dispatch", {"q": 1024, "n": 256})]
+
+
+def _cuda_apps():
+    """The pids ``nvidia-smi`` lists as holding a CUDA context (from the
+    host's pid namespace: in a container they need not match ours)."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return sorted(int(line) for line in out.split() if line.strip().isdigit())
+
+
+def _nvidia_files(pid):
+    """The ``/dev/nvidia*`` files process ``pid`` holds open or mapped: CUDA
+    opens them when a process first calls into it (importing torch maps
+    ``libcuda`` but opens none)."""
+    import os
+
+    found = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            found.add(target)
+    with open(f"/proc/{pid}/maps") as handle:
+        found.update(line.split()[-1] for line in handle if "/dev/nvidia" in line)
+    return sorted(found)
+
+
+@pytest.mark.cuda
+def test_db_serve_process_never_initializes_cuda(cuda, tmp_path):
+    """``orion-tpu-torch db serve`` is a host process: after it served
+    writes, reads and a batch it holds no ``/dev/nvidia*`` file (this
+    process, which holds a context, does), and ``nvidia-smi`` lists no more
+    compute apps than before it started."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    from orion_tpu_torch.storage.base import create_storage
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    torch.zeros(1, device=cuda)
+    torch.cuda.synchronize()
+    assert _nvidia_files(os.getpid())
+    apps_before = _cuda_apps()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "orion_tpu_torch.cli", "db", "serve", "--host", "127.0.0.1",
+         "--port", "0", "--no-auth", "--persist", str(tmp_path / "net.sqlite")],
+        env=dict(os.environ, PYTHONPATH=root, PYTHONUNBUFFERED="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "listening on" in line, line
+        address = line.split("listening on ")[1].split(" ")[0]
+        storage = create_storage({"type": "network", "address": address})
+        storage.db.write("trials", [{"_id": f"t{i}", "experiment": "e"} for i in range(8)])
+        storage.db.apply_batch([("count", ["trials", {}], {})])
+        assert storage.db.count("trials") == 8
+        assert _nvidia_files(proc.pid) == []
+        apps = _cuda_apps()
+        assert proc.pid not in apps and len(apps) == len(apps_before)
+    finally:
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=30) == 0
+
+
+@pytest.mark.cuda
+def test_network_store_gp_round_launches_fused_gram_at_the_main_shape(cuda, monkeypatch):
+    """``optimize(tpu_bo)`` at q=1024 over a ``network`` store (a server in
+    this process): the GP round's EI ranking launches the kernel once, at
+    16384 x 256 x 6, and each round's lies and completions ride the wire."""
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.client.experiment import optimize
+    from orion_tpu_torch.storage.base import create_storage
+    from orion_tpu_torch.storage.netdb import DBServer
+
+    shapes = []
+    plan = gram._launch_plan
+
+    def recording_plan(m, n, d, aligned):
+        shapes.append((m, n, d))
+        return plan(m, n, d, aligned)
+
+    monkeypatch.setattr(gram, "_launch_plan", recording_plan)
+    server = DBServer(port=0, secret="s")
+    host, port = server.serve_background()
+    try:
+        storage = create_storage({"type": "network", "host": host, "port": port,
+                                  "secret": "s"})
+        before = gram.fused_gram.launches
+        stats = optimize(None, {f"x{i}": "uniform(0, 1)" for i in range(6)},
+                         max_trials=2048, batch_size=1024, algorithm=HUNT_ALGO, seed=0,
+                         batch_eval=hartmann6, storage=storage)
+        assert stats["trials_completed"] == 2048
+        assert gram.fused_gram.launches - before == 1 and shapes == [(16384, 256, 6)]
+        assert storage.db.wire_requests > 0
+        assert server.db.count("trials", {"status": "completed"}) == 2048
+    finally:
+        server.shutdown()
+        server.server_close()

@@ -1,8 +1,9 @@
 """The port stands alone: ``orion_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX (``jax``, ``jaxlib``, ``optax``) nor any module of the JAX
 package ``orion_tpu`` — matched as the exact module or a dotted prefix, so
-``orion_tpu_torch`` itself does not count.  The telemetry plane's modules
-are also checked by name, and for importing without side effects."""
+``orion_tpu_torch`` itself does not count.  The telemetry plane's and the
+network plane's modules are also checked by name, and for importing
+without side effects."""
 
 import ast
 import os
@@ -130,6 +131,34 @@ def test_telemetry_plane_stands_alone():
     env = {k: v for k, v in os.environ.items()
            if k not in ("ORION_TPU_TELEMETRY", "ORION_TPU_FLIGHT", "ORION_TPU_METRICS_PORT")}
     env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+NETWORK_PLANE = ("storage.netdb", "storage.shard", "storage.migrate_ids", "cli.db",
+                 "cli.info", "cli.setup_cmd", "cli.test_db_cmd")
+
+
+def test_network_plane_stands_alone():
+    """The network storage, the router, the id migrator and the ``db`` and
+    ``info`` commands are among the checked files, and in a fresh
+    interpreter importing them loads neither JAX nor ``orion_tpu`` and
+    starts no thread and no server."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in NETWORK_PLANE:
+        assert os.path.join("orion_tpu_torch", *name.split(".")) + ".py" in files
+    modules = [f"orion_tpu_torch.{name}" for name in NETWORK_PLANE]
+    code = (
+        "import importlib, sys, threading\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -313,9 +313,23 @@ def test_retry_policy_matches_reference():
 
 
 def test_unported_backends_raise_not_implemented():
-    for db_type in ("network", "netdb"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            create_storage({"type": db_type})
+    """Every storage type the reference names is ported now: ``network``
+    (and its ``netdb`` alias, and ``shards:``) builds over a live server
+    instead of raising; an unknown type is still refused."""
+    from orion_tpu_torch.storage.netdb import DBServer, NetworkDB
+    from orion_tpu_torch.storage.shard import ShardedNetworkDB
+
+    server = DBServer(port=0)
+    host, port = server.serve_background()
+    try:
+        for db_type in ("network", "netdb"):
+            db = create_storage({"type": db_type, "host": host, "port": port}).db
+            assert type(db) is NetworkDB and (db.host, db.port) == (host, port)
+        db = create_storage({"type": "network", "shards": [f"{host}:{port}"]}).db
+        assert type(db) is ShardedNetworkDB and db.n_shards == 1
+    finally:
+        server.shutdown()
+        server.server_close()
     with pytest.raises(DatabaseError):
         create_storage({"type": "nosuch"})
 

@@ -182,3 +182,22 @@ def isolated_telemetry(enabled=True):
             os.environ.pop("ORION_TPU_METRICS_PORT", None)
         else:
             os.environ["ORION_TPU_METRICS_PORT"] = port_env
+
+
+class FakeOrionCollection:
+    """Stands in for a collection of a reference-Oríon pickled database
+    (``db load`` reads its ``find()``)."""
+
+    def __init__(self, docs):
+        self._docs = list(docs)
+
+    def find(self):
+        return [dict(doc) for doc in self._docs]
+
+
+class FakeOrionDB:
+    """Stands in for a reference-Oríon ``PickledDB`` file's database: its
+    collections by name under ``_db``."""
+
+    def __init__(self, collections):
+        self._db = dict(collections)
