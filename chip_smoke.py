@@ -57,7 +57,7 @@ non-zero; nothing is caught and passed over):
    kernel's launch shapes counted over the call (a launch at 16384 x 256
    x 6), with each trial's subprocess, reservation, completion and status
    reads timed.  Then ``--n-workers 8 --profile`` as a subprocess on a
-   fresh SQLite file, 1280 trials: no trial run twice (the script logs
+   fresh SQLite file, 1088 trials: no trial run twice (the script logs
    each execution), lies registered, the kernel counted in the workers'
    profiler traces, with each worker's device busy time and idle share.
    Last the regret gate's scenario through the CLI on ``pickled``, the
@@ -66,7 +66,7 @@ non-zero; nothing is caught and passed over):
 10. ``evc``: experiment version control through the CLI on the ``cli``
    phase's one-worker store.  ``hunt -n cli`` again with ``x0 ~ uniform(0,
    0.5)`` branches version 2 (a prior change), then with ``x1`` narrowed as
-   well version 3; each runs 128 trials of its own at ``--pool-size 1024``.
+   well version 3; each runs 64 trials of its own at ``--pool-size 1024``.
    Each child's producer fetches its ancestors' trials through the EVC
    tree, adapted hop by hop, so its first round is a GP round (a
    ``fused_gram`` launch at 16384 x 256 x 6).  Checks the ``refers`` chain,
@@ -83,7 +83,7 @@ non-zero; nothing is caught and passed over):
    of each and their ratio, the ``suggest_step.dispatch`` spans.  (b)
    ``orion-tpu-torch hunt --n-workers 4 --profile`` on a fresh SQLite file
    (the ``cli`` phase's script and unseeded ``tpu_bo``, ``--pool-size
-   1024``, 1280 trials), twice: with ``telemetry: false``, and with
+   1024``, 1088 trials), twice: with ``telemetry: false``, and with
    ``telemetry: true`` and a free ``metrics_port``, on first unless
    ``--fleet-off-first`` is given.  While the telemetry run goes,
    ``/metrics`` (Prometheus text, a growing ``storage_sqlite_txn``
@@ -106,7 +106,8 @@ non-zero; nothing is caught and passed over):
    1024``, traced with ``--profile``, ``telemetry: true``.  (a) One server
    with ``--persist`` SQLite and ``--secret-file``; ``hunt --n-workers 4``
    through ``ORION_DB_TYPE=network``, ``ORION_DB_ADDRESS`` and
-   ``ORION_DB_SECRET_FILE``, 1280 trials (the ``telemetry`` fleet's depth):
+   ``ORION_DB_SECRET_FILE``, 128 trials past a history of 256 completed
+   through the library (so that the workers' first rounds are GP rounds):
    completed equal to the distinct executions (none twice), every
    completion read back from the server and, after its clean shutdown,
    from its SQLite file; ``audit``, ``trace --distributed`` holding the
@@ -115,7 +116,8 @@ non-zero; nothing is caught and passed over):
    primaries, each replicating to one replica with ``--quorum 1``, a
    ``shards:`` stanza; two experiments the ring places on different
    shards (checked against ``db ring``), hunted at once by two workers
-   each, 2048 trials each: every completion on the shard's primary and on
+   each, 128 trials each past a history of 256: every completion on the
+   shard's primary and on
    its replica once their seqs are equal; ``db status --json`` (primaries,
    quorum 1, lag 0), ``audit --all`` with the topology line, ``metrics``
    with the router's ``storage.shard.*`` counters.  (c) ``db dump`` of one
@@ -124,7 +126,37 @@ non-zero; nothing is caught and passed over):
    migrate-ids`` on the copy and a clean ``audit``, ``info``.  Each
    experiment's workers launch the kernel at 16384 x 256 x 6 (their
    traces).
-13. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+13. ``day2``: the day-2 storage operations on (b)'s plane, restarted from
+   its SQLite files (the primaries on their ports, so the ring is the
+   same), with three experiments of 256 completed trials and none pending
+   (a resumed worker's first round is then a GP round; (b)'s experiments
+   keep about a round of registered trials nobody ran) and four with a few.
+   Every server and admin command (``db ring``, ``rebalance``, ``drain``,
+   ``backup``, ``restore``) is a host process, checked as in 12.; each
+   admin command's migrator steps are timed by wrapping them.  (a) A third
+   primary with one replica on a port the grown ring moves a third of the
+   experiments for (none of (b)'s two): ``db ring --diff`` lists
+   the ring's moves, ``db rebalance`` moves them, each moved trial
+   document equal on the destination, the source copy and the override
+   gone, ``audit --all`` clean; the moved 256-trial experiment resumed for
+   one GP round.  (b) Two workers hunt a 256-trial experiment on the old
+   stanza while ``db drain``, started 8 s after them, empties its shard (which
+   holds one of (b)'s experiments too): their GP rounds register during
+   the drain and they
+   complete trials after the flip (the ``moved`` override routes them);
+   the fence window, the placement states polled every 25 ms and the
+   workers' ``storage.retries``; ``db drain --dry-run`` shows nothing
+   resident; the survivor stanza rolled out, the drained shard's servers
+   stopped, one worker resumes.  No observation lost: completions through
+   the router equal those on the shards and the distinct executions, each
+   on the destination's primary and replica; ``audit --all`` clean.  (c)
+   ``db backup --out`` (each shard's ``seq`` and ``epoch`` in the
+   manifest) and ``db restore --src`` onto three fresh primaries: counts
+   equal to the manifest's, trial documents equal by id, auto-id rows by
+   content, ``audit --all`` clean; the untouched 256-trial experiment
+   resumed there for one GP round.  Each resumed GP round launches the
+   kernel at 16384 x 256 x 6 (the workers' traces).
+14. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -138,7 +170,9 @@ import multiprocessing
 import os
 import queue
 import re
+import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -928,7 +962,7 @@ CLI_ALGO = {"n_init": 16, "n_candidates": 16384, "fit_steps": 40, "local_frac": 
 CLI_Q = 1024
 CLI_TRIALS = 1040  # one random round of 1024, then a GP round of which 16 are consumed
 CLI_WORKERS = 8
-CLI_WORKER_TRIALS = 1280
+CLI_WORKER_TRIALS = 1088
 #: The kernel's name in a profiler trace (``ops/csrc/gram.cu``).
 GRAM_KERNEL = "gram_kernel"
 
@@ -1309,7 +1343,7 @@ def phase_cli(device, tmp):
 #: with a narrower prior, each branching a child that runs ``EVC_TRIALS``
 #: trials of its own: v2 with ``x0 ~ uniform(0, 0.5)``, v3 with ``x1`` too.
 EVC_NARROWED = (0, 1)
-EVC_TRIALS = 128
+EVC_TRIALS = 64
 EVC_TREE = "cli-v1\n└── cli-v2\n    └── cli-v3\n"
 
 
@@ -1473,7 +1507,7 @@ def phase_evc(device, tmp):
 #: a ``/metrics`` port; (c) the flight recorder's dumps.
 TELEMETRY_ROUNDS = 6
 TELEMETRY_WORKERS = 4
-TELEMETRY_TRIALS = 1280
+TELEMETRY_TRIALS = 1088
 PROM_LINE = re.compile(
     r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*",?)*\})? '
     r'(-?[0-9.eE+-]+|\+Inf|-Inf|NaN)$')
@@ -1854,9 +1888,9 @@ def phase_telemetry(device, tmp, cli_workers_trials_per_s, fleet_off_first=False
 #: The ``network`` phase: workers over ``orion-tpu-torch db serve`` (one
 #: server, then a replicated two-shard plane), the main path's width.
 NETWORK_WORKERS = 4
-NETWORK_TRIALS = TELEMETRY_TRIALS
+NETWORK_TRIALS = 128  # past the seeded HISTORY
 SHARD_WORKERS = 2
-SHARD_TRIALS = 2048
+SHARD_TRIALS = 128  # past the seeded HISTORY
 #: A synchronous write waits this long for its replica's ack: a GP round
 #: registers q=1024 documents carrying their lineage (~37 MB), which the
 #: replica decodes and applies in seconds (the server's default is 2.0).
@@ -1956,6 +1990,21 @@ class DBServers:
     def pids(self):
         return {name: proc.pid for name, proc in self.procs.items()}
 
+    def stop(self, *names):
+        """Stop the named servers as leaving the block does (SIGINT, a
+        clean exit 0)."""
+        for name in names:
+            proc = self.procs.pop(name)
+            proc.send_signal(signal.SIGINT)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+                rc = None
+            if rc != 0:
+                raise AssertionError(f"network: server {name} did not stop cleanly ({rc})")
+
     def check_host_only(self):
         """No server ever initialized CUDA: none holds a ``/dev/nvidia*``
         file open or mapped (CUDA opens them at a process's first call
@@ -2024,13 +2073,55 @@ def _wire_ms(storage, exp_id, backend):
     return out
 
 
-def _check_fleet(name, storage, log, prof, max_trials, device):
-    """A hunt's trials in ``storage``: the objectives, no trial run twice
-    (the user script logs each execution), completed equal to the distinct
+#: Completed trials an experiment of the ``network`` and ``day2`` fleets
+#: starts from: a 256-row history and none pending, so the workers' first
+#: rounds are GP rounds at ``MAIN_SHAPE`` (without it each fleet first runs
+#: a random round of 1024 trials through the script).
+HISTORY = 256
+
+
+def seed_history(storage, name, init_args, script, log, device, completed=HISTORY, seed=0):
+    """``init-only -n NAME INIT_ARGS`` with the user arguments a later
+    ``hunt`` passes (the script, the priors and ``--log LOG`` if given), so
+    that it resumes the experiment, then ``completed`` random trials
+    registered and completed through the library on ``storage``: Hartmann6
+    at their points, none left pending.  Returns their ids."""
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.core.experiment import build_experiment
+    from orion_tpu_torch.core.trial import Result, Trial
+
+    user_args = [script, *CLI_PRIORS, *(["--log", log] if log else [])]
+    rc, out, _ = _cli_output(["init-only", "-n", name, *init_args, *user_args])
+    if rc != 0:
+        raise AssertionError(f"init-only {name} exited {rc}: {out}")
+    exp = build_experiment(storage, name)
+    rows = np.random.default_rng(seed).uniform(size=(completed, 6)).astype(np.float32)
+    values = hartmann6(torch.from_numpy(rows).to(device)).cpu().numpy()
+    exp.register_trials([Trial(params={f"/x{i}": float(r[i]) for i in range(6)})
+                         for r in rows])
+    by_point = {tuple(float(v) for v in r): float(y) for r, y in zip(rows, values)}
+    while storage.count_completed_trials(exp.id) < completed:
+        trials = exp.reserve_trials(completed)
+        exp.update_completed_trials([
+            (t, [Result("objective", "objective",
+                        by_point[tuple(t.params[f"/x{i}"] for i in range(6))])])
+            for t in trials])
+    history = {t.id for t in exp.fetch_trials()}
+    if len(history) != completed:
+        raise AssertionError(f"{name}: {len(history)} trials beside a history of {completed}")
+    return history
+
+
+def _check_fleet(name, storage, log, prof, max_trials, device, history):
+    """A hunt's trials in ``storage``, ``max_trials`` past the seeded
+    ``history``: the objectives, no trial run twice (the user script logs
+    each execution), completed past the history equal to the distinct
     executions, and the kernel launched at ``MAIN_SHAPE`` in the workers'
     traces."""
     exp_id, trials = _fetch_trials(storage, name)
-    done, values, err = check_cli_trials(f"network {name}", trials, max_trials, device)
+    done, values, err = check_cli_trials(f"network {name}", trials, len(history) + max_trials,
+                                         device)
+    done = [t for t in done if t.id not in history]
     with open(log) as handle:
         executed = handle.read().split()
     if len(executed) != len(set(executed)):
@@ -2078,18 +2169,21 @@ def run_network_server(tmp, device, workers=NETWORK_WORKERS, max_trials=NETWORK_
         [address] = servers.start(("server", ["--persist", persist, "--secret-file", secret]))
         env = {"ORION_DB_TYPE": "network", "ORION_DB_ADDRESS": address,
                "ORION_DB_SECRET_FILE": secret}
-        wall_s = run_cohort([(_cli_command(
-            "-n", "net", "-c", config, "--pool-size", str(q), "--max-trials", str(max_trials),
-            "--n-workers", str(workers), "--profile", prof, "--device", device.type, script,
-            *CLI_PRIORS, "--log", log), run_dir)], timeout, env=env)
         storage = create_storage({"type": "network", "address": address,
                                   "secret_file": secret})
+        with _environ(**env):
+            history = seed_history(storage, "net", ["-c", config], script, log, device)
+        wall_s = run_cohort([(_cli_command(
+            "-n", "net", "-c", config, "--pool-size", str(q), "--max-trials",
+            str(HISTORY + max_trials), "--n-workers", str(workers), "--profile", prof,
+            "--device", device.type, script, *CLI_PRIORS, "--log", log), run_dir)], timeout,
+            env=env)
         t0 = time.perf_counter()
-        fleet = _check_fleet("net", storage, log, prof, max_trials, device)
+        fleet = _check_fleet("net", storage, log, prof, max_trials, device, history)
         check_ms = (time.perf_counter() - t0) * 1e3
         served = {d["_id"] for d in storage.db.read(
             "trials", {"experiment": fleet["exp_id"], "status": "completed"},
-            projection={"_id": 1})}
+            projection={"_id": 1})} - history
         if served != set(fleet["executed"]):
             raise AssertionError(f"network: {len(served)} completions read back from the "
                                  f"server, {len(set(fleet['executed']))} acknowledged")
@@ -2112,7 +2206,7 @@ def run_network_server(tmp, device, workers=NETWORK_WORKERS, max_trials=NETWORK_
     t0 = time.perf_counter()
     durable = {d["_id"] for d in create_storage({"type": "sqlite", "path": persist}).db.read(
         "trials", {"experiment": fleet["exp_id"], "status": "completed"},
-        projection={"_id": 1})}
+        projection={"_id": 1})} - history
     durable_ms = (time.perf_counter() - t0) * 1e3
     if durable != served:
         raise AssertionError(f"network: {len(durable)} completions in the server's SQLite "
@@ -2162,6 +2256,20 @@ def _seq(address, secret):
         raise
 
 
+def _wait_replicated(primary, replica, secret, tag, timeout=120):
+    """``(primary client, replica client, seq)`` once the replica's seq
+    equals the primary's; the caller closes the clients."""
+    p_client, p_seq = _seq(primary, secret)
+    r_client, r_seq = _seq(replica, secret)
+    t0 = time.perf_counter()
+    while r_seq["seq"] != p_seq["seq"]:
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{tag}: replica at {r_seq} behind primary {p_seq}")
+        time.sleep(0.2)
+        p_seq, r_seq = p_client._call("seq"), r_client._call("seq")
+    return p_client, r_client, p_seq["seq"]
+
+
 def run_network_shards(tmp, device, workers=SHARD_WORKERS, max_trials=SHARD_TRIALS, q=CLI_Q,
                        algo=CLI_ALGO, timeout=600):
     """(b) Two primaries persisted to SQLite, each replicating to one
@@ -2202,41 +2310,39 @@ def run_network_shards(tmp, device, workers=SHARD_WORKERS, max_trials=SHARD_TRIA
             yaml.safe_dump({"telemetry": True, "storage": storage_config,
                             "algorithms": {"tpu_bo": unseeded}}, handle)
         names = _shard_names(primaries)
+        storage = create_storage(storage_config)
+        histories = {name: seed_history(storage, name, ["-c", config], script,
+                                        os.path.join(run_dir, f"executions-{name}.log"),
+                                        device, seed=k)
+                     for k, (name, _) in enumerate(names)}
         commands = []
         for name, _ in names:
             commands.append((_cli_command(
                 "-n", name, "-c", config, "--pool-size", str(q), "--max-trials",
-                str(max_trials), "--n-workers", str(workers), "--profile",
+                str(HISTORY + max_trials), "--n-workers", str(workers), "--profile",
                 os.path.join(run_dir, f"profile-{name}"), "--device", device.type, script,
                 *CLI_PRIORS, "--log", os.path.join(run_dir, f"executions-{name}.log")),
                 run_dir))
         wall_s = run_cohort(commands, timeout)
         ring_rc, ring_out, _ = _cli_output(["db", "ring", "-c", config])
-        storage = create_storage(storage_config)
         router = storage.db
         per_experiment = {}
         for name, index in names:
             fleet = _check_fleet(name, storage, os.path.join(run_dir, f"executions-{name}.log"),
-                                 os.path.join(run_dir, f"profile-{name}"), max_trials, device)
+                                 os.path.join(run_dir, f"profile-{name}"), max_trials, device,
+                                 histories[name])
             placed = re.search(rf"  {name} v1 \(\S+\) -> shard (\d+)", ring_out)
             if router.shard_for(fleet["exp_id"]) != index or not placed \
                     or int(placed.group(1)) != index:
                 raise AssertionError(f"network: {name} not on shard {index}:\n{ring_out}")
             acknowledged = set(fleet["executed"])
-            primary, primary_seq = _seq(primaries[index], secret)
-            replica, replica_seq = _seq(replicas[index], secret)
-            t0 = time.perf_counter()
-            while replica_seq["seq"] != primary_seq["seq"]:
-                if time.perf_counter() - t0 > 120:
-                    raise AssertionError(f"network: replica {index} at seq {replica_seq} "
-                                         f"behind primary {primary_seq}")
-                time.sleep(0.2)
-                primary_seq, replica_seq = primary._call("seq"), replica._call("seq")
+            primary, replica, seq = _wait_replicated(primaries[index], replicas[index], secret,
+                                                     f"network {name}")
             read_back = {}
             for role, client in (("primary", primary), ("replica", replica)):
                 read_back[role] = {d["_id"] for d in client.read(
                     "trials", {"experiment": fleet["exp_id"], "status": "completed"},
-                    projection={"_id": 1})}
+                    projection={"_id": 1})} - histories[name]
                 client.close()
             if read_back["primary"] != acknowledged or read_back["replica"] != acknowledged:
                 raise AssertionError(
@@ -2252,7 +2358,7 @@ def run_network_shards(tmp, device, workers=SHARD_WORKERS, max_trials=SHARD_TRIA
                 "completed": len(fleet["done"]), "executed": len(fleet["executed"]),
                 "executed_distinct": len(acknowledged),
                 "read_back_primary": len(read_back["primary"]),
-                "read_back_replica": len(read_back["replica"]), "seq": primary_seq["seq"],
+                "read_back_replica": len(read_back["replica"]), "seq": seq,
                 "regret": float(fleet["values"].min()) - GLOBAL_MIN,
                 "objective_max_abs_err": fleet["err"],
                 "wire_ms_per_trial": _wire_ms(storage, fleet["exp_id"], "shard"),
@@ -2288,7 +2394,10 @@ def run_network_shards(tmp, device, workers=SHARD_WORKERS, max_trials=SHARD_TRIA
             "audit_topology": audit_out.splitlines()[0], "server_pids": server_pids,
             "compute_apps": compute_apps,
             "fused_gram_launches": sum(e["fused_gram_launches"]
-                                       for e in per_experiment.values())}, admin
+                                       for e in per_experiment.values()),
+            "plane": {"dir": run_dir, "secret": secret_path, "primaries": primaries,
+                      "names": [name for name, _ in names], "script": script,
+                      "algo": unseeded}}, admin
 
 
 def run_network_admin(plane_dir, name, address, secret_path):
@@ -2343,14 +2452,666 @@ def run_network_admin(plane_dir, name, address, secret_path):
 def phase_network(device, tmp, telemetry_trials_per_s):
     """Networked and sharded storage: workers over one server, over a
     replicated two-shard plane, and the ``db`` administration commands.
-    Returns ``fused_gram``'s launches in each run."""
+    Returns ``fused_gram``'s launches in each run, and the two-shard
+    plane's files, addresses and experiments for the ``day2`` phase."""
     server = run_network_server(tmp, device)
     emit("network", run="server", storage="network+sqlite",
          telemetry_four_workers_sqlite_trials_per_s=telemetry_trials_per_s, **server)
     plane, admin = run_network_shards(tmp, device)
+    files = plane.pop("plane")
     emit("network", run="shards", storage="2 shards x (primary + replica), sqlite", **plane)
     emit("network", run="admin", **admin)
-    return {"server": server["fused_gram_launches"], "shards": plane["fused_gram_launches"]}
+    return {"server": server["fused_gram_launches"], "shards": plane["fused_gram_launches"]}, files
+
+
+#: The ``day2`` phase: beside the three experiments it resumes (each with a
+#: ``HISTORY``), experiments with a few completed trials each, so that the
+#: grown ring's plan moves a share of experiments comparable with 1/3.
+DAY2_FILLERS = 4
+DAY2_FILLER_TRIALS = 8
+#: Seconds between the live drain's workers starting and the drain.
+DAY2_DRAIN_AFTER_S = 8.0
+#: Trials the live drain's two workers run past the history.
+DAY2_LIVE_TRIALS = 320
+#: A resumed hunt's budget past the completed trials.
+DAY2_RESUME_TRIALS = 16
+#: The hunts' storage retry policy: a fenced experiment's ops fail with a
+#: transient error for the whole fence window (the placement TTL's grace,
+#: then the delta copy, the verify and the flip), and the policy rides
+#: through it.
+DAY2_RETRY = {"max_attempts": 1000, "base_delay": 0.05, "max_delay": 1.0, "deadline": 120.0}
+#: The live drain's placement documents are read this often.
+PLACEMENT_POLL_S = 0.025
+
+#: ``python3 -c ADMIN_WRAPPER REPORT ARGV...``: ``orion-tpu-torch ARGV`` with
+#: the migrator's steps timed (wall clock, by wrapping the methods), then
+#: the process's own ``/dev/nvidia*`` files, its exit code and the timings
+#: written to REPORT as JSON.
+ADMIN_WRAPPER = r"""
+import json, os, runpy, sys, time
+report, argv = sys.argv[1], sys.argv[2:]
+from orion_tpu_torch.storage import drain, rebalance
+calls = []
+
+def timed(name, fn):
+    def wrapper(self, *args, **kwargs):
+        t0 = time.time()
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            move = args[0] if args else None
+            calls.append({"call": name, "state": args[1] if name == "_set_placement" else None,
+                          "experiment": getattr(move, "exp_id", None), "t0": t0,
+                          "t1": time.time()})
+    return wrapper
+
+for cls, names in ((rebalance.Rebalancer, ("plan", "run", "_copy", "_verify", "_set_placement",
+                                           "_delete_source", "_drop_placement")),
+                   (drain.Drainer, ("plan",))):
+    for name in names:
+        setattr(cls, name, timed(name, cls.__dict__[name]))
+sys.argv = ["orion-tpu-torch", *argv]
+rc = 0
+try:
+    runpy.run_module("orion_tpu_torch.cli", run_name="__main__", alter_sys=True)
+except SystemExit as exc:
+    rc = exc.code if isinstance(exc.code, int) else (0 if exc.code is None else 1)
+files = set()
+for fd in os.listdir("/proc/self/fd"):
+    try:
+        target = os.readlink(os.path.join("/proc/self/fd", fd))
+    except OSError:
+        continue
+    if target.startswith("/dev/nvidia"):
+        files.add(target)
+with open("/proc/self/maps") as handle:
+    files.update(line.split()[-1] for line in handle if "/dev/nvidia" in line)
+with open(report, "w") as handle:
+    json.dump({"rc": rc, "pid": os.getpid(), "nvidia_files": sorted(files), "calls": calls},
+              handle)
+sys.exit(rc)
+"""
+
+
+def run_admin(run_dir, tag, argv, apps_before, apps_allowed=0, timeout=600):
+    """``orion-tpu-torch ARGV`` as a host process through ``ADMIN_WRAPPER``,
+    its output in ``TAG.out``: its ``/dev/nvidia*`` files are read from
+    ``/proc`` every 0.1 s while it runs and reported by the process itself
+    at its end, and ``nvidia-smi``'s compute apps every second; the command
+    fails the phase if it held such a file or if the apps ever outnumber
+    ``apps_before`` by more than ``apps_allowed`` (the hunt workers running
+    beside it).  Returns (exit code, output, report, wall ms, most apps
+    seen)."""
+    report = os.path.join(run_dir, f"{tag}.report.json")
+    out_path = os.path.join(run_dir, f"{tag}.out")
+    seen, most_apps, last_smi = set(), 0, None
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-c", ADMIN_WRAPPER, report, *argv],
+                                env=dict(os.environ, PYTHONPATH=ROOT), cwd=run_dir, stdout=out,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+        t0 = time.perf_counter()
+        try:
+            while proc.poll() is None:
+                now = time.perf_counter()
+                if now - t0 > timeout:
+                    raise AssertionError(f"day2: {' '.join(argv[:2])} ran past {timeout} s")
+                try:
+                    seen.update(nvidia_files(proc.pid))
+                except OSError:
+                    pass  # it exited between poll() and the read
+                if last_smi is None or now - last_smi >= 1.0:
+                    most_apps, last_smi = max(most_apps, len(compute_apps())), now
+                time.sleep(0.1)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with open(out_path) as handle:
+        text = handle.read()
+    if not os.path.exists(report):
+        raise AssertionError(f"day2: {' '.join(argv[:2])} wrote no report "
+                             f"(exit {proc.returncode}):\n{text[-3000:]}")
+    with open(report) as handle:
+        report = json.load(handle)
+    seen.update(report["nvidia_files"])
+    if seen or most_apps > len(apps_before) + apps_allowed:
+        raise AssertionError(f"day2: {' '.join(argv[:2])} (pid {proc.pid}) initialized CUDA: "
+                             f"{sorted(seen)}; {most_apps} compute apps against "
+                             f"{len(apps_before)} + {apps_allowed}")
+    return proc.returncode, text, report, wall_ms, most_apps
+
+
+def migrator_ms(report):
+    """Per moved experiment, from an admin report's timed calls: the first
+    copy (while pinned), the fence window (fenced written -> moved written),
+    the delta copy and the verify inside it, and the source's deletion."""
+    per = collections.defaultdict(dict)
+    for call in report["calls"]:
+        exp, ms = call["experiment"], (call["t1"] - call["t0"]) * 1e3
+        if exp is None:
+            continue
+        row = per[exp]
+        if call["call"] == "_set_placement":
+            row[f"{call['state']}_at"] = call["t1"]
+            row[f"set_{call['state']}_ms"] = ms
+        elif call["call"] == "_copy":
+            row["copy_ms" if "copy_ms" not in row else "delta_copy_ms"] = ms
+        elif call["call"] == "_verify":
+            row["verify_ms"] = ms
+        elif call["call"] == "_delete_source":
+            row["delete_ms"] = ms
+    for row in per.values():
+        if "fenced_at" in row and "moved_at" in row:
+            row["fence_window_ms"] = (row["moved_at"] - row["fenced_at"]) * 1e3
+    runs = [c for c in report["calls"] if c["call"] == "run"]
+    return dict(per), ((runs[0]["t1"] - runs[0]["t0"]) * 1e3 if runs else None)
+
+
+def _stanza(primaries, replicas, secret_path):
+    return {"type": "network", "secret_file": secret_path, "retry": dict(DAY2_RETRY),
+            "shards": [{"address": p, **({"replicas": [r]} if r else {})}
+                       for p, r in zip(primaries, replicas)]}
+
+
+def _day2_config(run_dir, name, stanza, algo):
+    import yaml
+
+    path = os.path.join(run_dir, f"{name}.yaml")
+    with open(path, "w") as handle:
+        yaml.safe_dump({"telemetry": True, "storage": stanza,
+                        "algorithms": {"tpu_bo": dict(algo)}}, handle)
+    return path
+
+
+def _exp_id(name):
+    from orion_tpu_torch.cli.base import _default_user
+    from orion_tpu_torch.core.experiment import experiment_id
+
+    return experiment_id(name, 1, _default_user())
+
+
+def _pick_port(old_ring, identities, big, taken):
+    """A free port for the new shard's primary whose ring moves none of
+    ``big`` (the ``network`` plane's experiments, ~110 MB each: moving one
+    costs about a minute, which the drain spends instead)."""
+    import random
+
+    from orion_tpu_torch.storage.shard import HashRing
+
+    rng = random.Random(0)
+    for _ in range(2000):
+        port = rng.randrange(20000, 60000)
+        if port in taken:
+            continue
+        ring = HashRing(identities + [f"127.0.0.1:{port}"])
+        if all(ring.lookup(e) == old_ring.lookup(e) for e in big):
+            try:
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port, ring
+    raise AssertionError("day2: no port leaves the network experiments in place")
+
+
+def _pick_name(prefix, accept):
+    for k in range(10000):
+        name = f"{prefix}-{k}"
+        if accept(_exp_id(name)):
+            return name
+    raise AssertionError(f"day2: no name for {prefix}")
+
+
+def _hunt(run_dir, tag, name, config, max_trials, workers, device, q, timeout, profile=True):
+    """``hunt --n-workers W [--profile]`` resuming ``name`` in ``run_dir``
+    (its ``--log`` file as at creation); returns (wall s, profile dir)."""
+    script = os.path.join(run_dir, "hartmann6.py")
+    prof = os.path.join(run_dir, f"profile-{tag}")
+    wall_s = run_cohort([(_cli_command(
+        "-n", name, "-c", config, "--pool-size", str(q), "--max-trials", str(max_trials),
+        "--n-workers", str(workers), *(["--profile", prof] if profile else []), "--device",
+        device.type, script, *CLI_PRIORS, "--log",
+        os.path.join(run_dir, f"executions-{name}.log")), run_dir)], timeout)
+    return wall_s, prof
+
+
+def _resumed(tag, prof):
+    """The resumed workers' launches from their traces: at least one at
+    ``MAIN_SHAPE``."""
+    per_worker = read_traces(prof)
+    shapes = collections.Counter()
+    for worker in per_worker:
+        shapes.update(worker["launch_shapes"])
+    main = "x".join(map(str, MAIN_SHAPE))
+    if shapes[main] < 1:
+        raise AssertionError(f"day2 {tag}: fused_gram launched at {dict(shapes)} "
+                             f"(none at {main})")
+    return {"fused_gram_launches": sum(w["fused_gram_launches"] for w in per_worker),
+            "launch_shapes": dict(shapes), "per_worker": per_worker}
+
+
+def _canonical_trials(conn, exp_id):
+    from orion_tpu_torch.storage.documents import dumps_canonical
+
+    return {d["_id"]: dumps_canonical(d) for d in conn.read("trials", {"experiment": exp_id})}
+
+
+def _audit_all(config, tag):
+    rc, out, ms = _cli_output(["audit", "--all", "-c", config])
+    if rc != 0:
+        raise AssertionError(f"day2 {tag}: audit --all exited {rc}:\n{out}")
+    return ms, out.splitlines()[0]
+
+
+def _completions(storage, exp_id):
+    return {d["_id"] for d in storage.db.read(
+        "trials", {"experiment": exp_id, "status": "completed"}, projection={"_id": 1})}
+
+
+def run_day2_grow(ctx):
+    """(a) A third primary with one replica, on a port the grown ring moves
+    a third of the experiments for (none of the ``network`` ones); the
+    stanza rolled out; ``db ring --diff`` (its plan equal to the ring's,
+    its move fraction near 1/3) and ``db rebalance``; every moved experiment's trial documents on
+    the destination equal to the source's, the source copy and the
+    placement override gone, ``audit --all`` clean; then the moved
+    ``day2`` experiment resumed for one GP round."""
+    from orion_tpu_torch.storage.base import create_storage
+
+    servers, run_dir = ctx["servers"], ctx["run_dir"]
+    replica = servers.start(("replica2", ["--replica", "--persist",
+                                          os.path.join(run_dir, "replica2.sqlite"),
+                                          *ctx["quorum"]]))[0]
+    primary = servers.start(("primary2", ["--port", str(ctx["port"]), "--replicate-to",
+                                          replica, "--persist",
+                                          os.path.join(run_dir, "primary2.sqlite"),
+                                          *ctx["quorum"]]))[0]
+    ctx["primaries"].append(primary)
+    ctx["replicas"].append(replica)
+    stanza = _stanza(ctx["primaries"], ctx["replicas"], ctx["secret_path"])
+    config = _day2_config(run_dir, "grown", stanza, ctx["algo"])
+    ctx["grown"] = config
+    old = create_storage(_stanza(ctx["primaries"][:2], ctx["replicas"][:2], ctx["secret_path"]))
+    ring = ctx["ring"]
+    expected = sorted((e, old.db.shard_for(e), ring.lookup(e)) for e in ctx["exp_ids"]
+                      if ring.lookup(e) != old.db.shard_for(e))
+    before = {e: _canonical_trials(dict(old.db.shard_connections())[src], e)
+              for e, src, _ in expected}
+    old.db.close()
+    rc, diff_out, _, diff_ms, _ = run_admin(run_dir, "ring-diff", ["db", "ring", "--diff",
+                                                                   "-c", config],
+                                            ctx["apps_before"])
+    plan = re.search(r"rebalance plan: (\d+) of (\d+) experiment\(s\) move \(([\d.]+)%\)",
+                     diff_out)
+    listed = sorted((m.group(1), int(m.group(2)), int(m.group(3))) for m in re.finditer(
+        r"\((\w+)\) shard (\d+) -> (\d+)", diff_out))
+    fraction = len(expected) / len(ctx["exp_ids"])
+    if rc != 0 or not plan or listed != expected or abs(fraction - 1 / 3) > 1 / 6:
+        raise AssertionError(f"day2 grow: ring --diff exited {rc}, listed {listed} against "
+                             f"the ring's {expected} (fraction {fraction}):\n{diff_out}")
+    rc, out, report, rebalance_ms, apps = run_admin(run_dir, "rebalance",
+                                                    ["db", "rebalance", "-c", config],
+                                                    ctx["apps_before"])
+    if rc != 0 or "placement == ring again" not in out:
+        raise AssertionError(f"day2 grow: db rebalance exited {rc}:\n{out}")
+    storage = create_storage(stanza)
+    conns = dict(storage.db.shard_connections())
+    for e, src, dst in expected:
+        if _canonical_trials(conns[dst], e) != before[e] or not before[e]:
+            raise AssertionError(f"day2 grow: {e}'s {len(before[e])} trial documents differ "
+                                 f"on shard {dst}")
+        if conns[src].count("trials", {"experiment": e}) or conns[src].count(
+                "experiments", {"_id": e}):
+            raise AssertionError(f"day2 grow: {e} still on its source shard {src}")
+    overrides = sum(len(c.read("_placement", {})) for c in conns.values())
+    audit_ms, topology = _audit_all(config, "grow")
+    if overrides:
+        raise AssertionError(f"day2 grow: {overrides} placement overrides left")
+    name = ctx["moved"]
+    completed = storage.count_completed_trials(_exp_id(name))
+    wall_s, prof = _hunt(run_dir, "grow", name, config, completed + DAY2_RESUME_TRIALS, 1,
+                         ctx["device"], ctx["q"], ctx["timeout"])
+    after = storage.count_completed_trials(_exp_id(name))
+    if after < completed + DAY2_RESUME_TRIALS or storage.db.shard_for(_exp_id(name)) != 2:
+        raise AssertionError(f"day2 grow: {name} at {after} completions after the resume")
+    storage.db.close()
+    moves, run_ms = migrator_ms(report)
+    return {"new_shard": {"primary": primary, "replica": replica},
+            "plan": {"moves": len(expected), "experiments": len(ctx["exp_ids"]),
+                     "move_fraction": fraction, "printed": plan.group(0)},
+            "moved": [{"experiment": e, "src": src, "dst": dst,
+                       "trial_documents": len(before[e]), **moves.get(e, {})}
+                      for e, src, dst in expected],
+            "ring_diff_ms": diff_ms, "rebalance_ms": rebalance_ms, "migrator_run_ms": run_ms,
+            "compute_apps_seen": apps, "audit_ms": audit_ms, "audit_topology": topology,
+            "resumed": {"experiment": name, "completed_before": completed,
+                        "completed_after": after, "wall_s": wall_s,
+                        **_resumed("grow", prof)}}
+
+
+def _poll_placements(address, secret, stop, seen):
+    """Every ``PLACEMENT_POLL_S``, the drained shard's placement documents:
+    the wall time each (experiment, state) was first seen."""
+    from orion_tpu_torch.storage.netdb import NetworkDB
+
+    host, _, port = address.rpartition(":")
+    client = NetworkDB(host=host, port=int(port), secret=secret, timeout=30.0)
+    try:
+        while not stop.is_set():
+            now = time.time()
+            for doc in client.read("_placement", {}):
+                seen.setdefault((doc["experiment"], doc["state"]), now)
+            stop.wait(PLACEMENT_POLL_S)
+    finally:
+        client.close()
+
+
+def run_day2_drain(ctx):
+    """(b) Two workers hunt the live ``day2`` experiment while ``db drain``
+    empties its shard (which also holds a ``network`` experiment), with
+    the old stanza: the ``moved`` override on the drained shard routes them
+    after the flip.  The drain starts shortly after the workers, so their GP
+    rounds register while it runs.  Then ``db drain --dry-run`` (nothing resident), the
+    survivor stanza rolled out and the drained shard's servers stopped, and
+    one worker resuming the hunt.  No observation lost: completions through
+    the router equal the sum of direct per-shard reads and the distinct
+    executions the script logged; each completion on the destination's
+    primary and replica; ``audit --all`` clean; the fence window and the
+    workers' ``storage.retries``."""
+    import threading
+
+    from orion_tpu_torch.storage.base import create_storage
+
+    servers, run_dir, secret = ctx["servers"], ctx["run_dir"], ctx["secret"]
+    name, index = ctx["live"], ctx["drained"]
+    exp_id = _exp_id(name)
+    stop, seen, result = threading.Event(), {}, {}
+    poller = threading.Thread(target=_poll_placements,
+                              args=(ctx["primaries"][index], secret, stop, seen))
+    poller.start()
+
+    def hunt():
+        try:
+            result["wall_s"], result["prof"] = _hunt(
+                run_dir, "drain", name, ctx["grown"], HISTORY + DAY2_LIVE_TRIALS, 2,
+                ctx["device"], ctx["q"], ctx["timeout"])
+        except BaseException as exc:  # re-raised below, in the phase's thread
+            result["error"] = exc
+
+    workers = threading.Thread(target=hunt)
+    t0 = time.time()
+    workers.start()
+    try:
+        # The drain starts DAY2_DRAIN_AFTER_S after the workers (a worker
+        # takes longer than that to start and build its algorithm) and
+        # spends as long again starting and planning, then copies the
+        # network experiment first: the workers' first rounds, GP rounds
+        # over the 256-trial history, register while it runs.
+        time.sleep(DAY2_DRAIN_AFTER_S)
+        drain_started = time.time()
+        rc, out, report, drain_ms, apps = run_admin(
+            run_dir, "drain", ["db", "drain", str(index), "-c", ctx["grown"]],
+            ctx["apps_before"], apps_allowed=2)
+        drained_at = time.time()
+    finally:
+        workers.join()
+        stop.set()
+        poller.join()
+    if "error" in result:
+        raise result["error"]
+    if rc != 0 or f"shard {index} drained" not in out:
+        raise AssertionError(f"day2 drain: db drain exited {rc}:\n{out}")
+    rc, dry, _, dry_ms, _ = run_admin(run_dir, "drain-dry-run",
+                                      ["db", "drain", str(index), "--dry-run", "-c",
+                                       ctx["grown"]], ctx["apps_before"])
+    dry_moves = dry.splitlines()[1:]
+    if rc != 0 or not dry_moves or not all(line.endswith(" [moved]") for line in dry_moves):
+        raise AssertionError(f"day2 drain: the dry run after the drain shows residents:\n{dry}")
+    resident = create_storage({"type": "network", "address": ctx["primaries"][index],
+                               "secret_file": ctx["secret_path"]})
+    if resident.db.read("experiments", {}):
+        raise AssertionError("day2 drain: experiments left on the drained shard")
+    resident.db.close()
+    survivors = [i for i in range(3) if i != index]
+    ctx["primaries"] = [ctx["primaries"][i] for i in survivors]
+    ctx["replicas"] = [ctx["replicas"][i] for i in survivors]
+    stanza = _stanza(ctx["primaries"], ctx["replicas"], ctx["secret_path"])
+    config = _day2_config(run_dir, "survivors", stanza, ctx["algo"])
+    ctx["survivors"] = config
+    servers.check_host_only()
+    servers.stop(f"primary{index}", f"replica{index}")
+    storage = create_storage(stanza)
+    live = _resumed("drain", result["prof"])
+    trials = storage.fetch_trials(uid=exp_id)
+    submitted = sorted(t.submit_time for t in trials if t.submit_time and t.submit_time > t0)
+    completed = storage.count_completed_trials(exp_id)
+    wall_s, _ = _hunt(run_dir, "drain-resume", name, config, completed + DAY2_RESUME_TRIALS,
+                      1, ctx["device"], ctx["q"], ctx["timeout"], profile=False)
+    with open(os.path.join(run_dir, f"executions-{name}.log")) as handle:
+        executed = set(handle.read().split())
+    routed = _completions(storage, exp_id) - ctx["history"][name]
+    direct, replicated = set(), {}
+    for position, i in enumerate(survivors):
+        primary, replica, seq = _wait_replicated(ctx["primaries"][position],
+                                                 ctx["replicas"][position], secret,
+                                                 "day2 drain")
+        on_primary = {d["_id"] for d in primary.read(
+            "trials", {"experiment": exp_id, "status": "completed"}, projection={"_id": 1})}
+        on_replica = {d["_id"] for d in replica.read(
+            "trials", {"experiment": exp_id, "status": "completed"}, projection={"_id": 1})}
+        primary.close()
+        replica.close()
+        direct |= on_primary
+        if on_primary:
+            replicated[i] = {"primary": len(on_primary), "replica": len(on_replica),
+                             "seq": seq, "equal": on_primary == on_replica}
+    direct -= ctx["history"][name]
+    if not (routed == direct == executed) or not replicated or not all(
+            r["equal"] for r in replicated.values()):
+        raise AssertionError(f"day2 drain: {len(routed)} completions through the router, "
+                             f"{len(direct)} on the shards, {len(executed)} executed; "
+                             f"replicas {replicated}")
+    rc, body, _ = _cli_output(["metrics", "-n", name, "-c", config])
+    merged = parse_exposition(body)
+    retries = {k: v for k, v in merged.items() if "retr" in k or "gave_up" in k}
+    audit_ms, topology = _audit_all(config, "drain")
+    moves, run_ms = migrator_ms(report)
+    live_move = moves.get(exp_id, {})
+    states = {f"{state}_seen_at": at - t0 for (e, state), at in seen.items() if e == exp_id}
+    ends = sorted(t.end_time for t in trials if t.status == "completed" and t.end_time
+                  and t.end_time > t0)
+    fenced, moved = live_move.get("fenced_at"), live_move.get("moved_at")
+    if (not fenced or not moved or not ends or ends[-1] <= moved or not submitted
+            or not drain_started <= submitted[0] <= drained_at):
+        raise AssertionError(f"day2 drain: the workers did not hunt across the drain "
+                             f"(drain {drain_started - t0:.1f}-{drained_at - t0:.1f} s, "
+                             f"their GP rounds registered at {[s - t0 for s in submitted[:1]]}, "
+                             f"fenced {fenced}, moved {moved}, last completion "
+                             f"{ends[-1] if ends else None})")
+    storage.db.close()
+    return {"experiment": name, "drained_shard": index, "plan": out.splitlines()[0],
+            "drain_ms": drain_ms, "migrator_run_ms": run_ms, "dry_run_ms": dry_ms,
+            "moves": [{"experiment": e, **m} for e, m in moves.items()],
+            "fence_window_ms": live_move.get("fence_window_ms"),
+            "placement_polled": states, "workers_wall_s": result["wall_s"],
+            "drain_window_s": [drain_started - t0, drained_at - t0],
+            "migrator_started_s": min(call["t0"] for call in report["calls"]) - t0,
+            "gp_round_registered_s": [submitted[0] - t0, submitted[-1] - t0],
+            "trials_ended_before_fence": sum(1 for e in ends if e < fenced),
+            "trials_ended_in_fence": sum(1 for e in ends if fenced <= e < moved),
+            "trials_ended_after_flip": sum(1 for e in ends if e >= moved),
+            "completed_new": len(routed), "executed_distinct": len(executed),
+            "replicated": replicated, "worker_retries": retries,
+            "compute_apps_seen": apps, "audit_ms": audit_ms, "audit_topology": topology,
+            "live": live, "resumed": {"wall_s": wall_s, "completed_before": completed,
+                                      "completed_after": storage.count_completed_trials(
+                                          exp_id)}}
+
+
+def run_day2_restore(ctx):
+    """(c) ``db backup --out`` of the survivor plane (each shard's ``seq``
+    and ``epoch`` in the manifest), ``db restore --src`` into a fresh plane
+    of three primaries persisted to SQLite; its counts equal to the
+    manifest's, its trial documents equal by id to the backup's and its
+    auto-id rows by content, ``audit --all`` clean; then the untouched
+    ``day2`` experiment resumed there for one GP round."""
+    from orion_tpu_torch.storage.base import create_storage
+    from orion_tpu_torch.storage.documents import dumps_canonical
+
+    servers, run_dir = ctx["servers"], ctx["run_dir"]
+    out_dir = os.path.join(run_dir, "backup")
+    rc, out, _, backup_ms, _ = run_admin(run_dir, "backup",
+                                         ["db", "backup", "--out", out_dir, "-c",
+                                          ctx["survivors"]], ctx["apps_before"])
+    with open(os.path.join(out_dir, "manifest.json")) as handle:
+        manifest = json.load(handle)
+    if rc != 0 or len(manifest["shards"]) != 2 or not all(
+            isinstance(e.get("seq"), int) and e["seq"] > 0 and isinstance(e.get("epoch"), int)
+            for e in manifest["shards"]):
+        raise AssertionError(f"day2 restore: db backup exited {rc}, manifest "
+                             f"{manifest['shards']}:\n{out}")
+    fresh = servers.start(*[(f"fresh{i}", ["--persist", os.path.join(run_dir,
+                                                                     f"fresh{i}.sqlite"),
+                                           "--secret-file", ctx["secret_path"]])
+                            for i in range(3)])
+    stanza = _stanza(fresh, [None] * 3, ctx["secret_path"])
+    config = _day2_config(run_dir, "fresh", stanza, ctx["algo"])
+    rc, out, _, restore_ms, _ = run_admin(run_dir, "restore",
+                                          ["db", "restore", "--src", out_dir, "-c", config],
+                                          ctx["apps_before"])
+    if rc != 0 or "restored " not in out:
+        raise AssertionError(f"day2 restore: db restore exited {rc}:\n{out}")
+    t0 = time.perf_counter()
+    want, want_auto = {}, collections.Counter()
+    expected = collections.Counter()
+    for entry in manifest["shards"]:
+        with open(os.path.join(out_dir, entry["file"])) as handle:
+            collections_ = json.load(handle)["collections"]
+        for collection, docs in collections_.items():
+            if collection in ("_replmeta", "_placement"):
+                continue
+            expected[collection] += len(docs)
+            if collection == "trials":
+                want.update((d["_id"], dumps_canonical(d)) for d in docs)
+            elif collection in ("telemetry", "metrics", "spans", "health"):
+                want_auto.update(dumps_canonical({k: v for k, v in d.items() if k != "_id"})
+                                 for d in docs)
+    storage = create_storage(stanza)
+    got, got_auto, counts = {}, collections.Counter(), collections.Counter()
+    for _, conn in storage.db.shard_connections():
+        for collection in expected:
+            docs = conn.read(collection, {})
+            counts[collection] += len(docs)
+            if collection == "trials":
+                got.update((d["_id"], dumps_canonical(d)) for d in docs)
+            elif collection in ("telemetry", "metrics", "spans", "health"):
+                got_auto.update(dumps_canonical({k: v for k, v in d.items() if k != "_id"})
+                                for d in docs)
+    compare_ms = (time.perf_counter() - t0) * 1e3
+    if counts != expected or got != want or got_auto != want_auto:
+        raise AssertionError(f"day2 restore: counts {dict(counts)} against the manifest's "
+                             f"{dict(expected)}; trials equal {got == want}, auto-id rows "
+                             f"equal {got_auto == want_auto}")
+    audit_ms, topology = _audit_all(config, "restore")
+    name = ctx["restored"]
+    completed = storage.count_completed_trials(_exp_id(name))
+    wall_s, prof = _hunt(run_dir, "restore", name, config, completed + DAY2_RESUME_TRIALS, 1,
+                         ctx["device"], ctx["q"], ctx["timeout"])
+    after = storage.count_completed_trials(_exp_id(name))
+    storage.db.close()
+    if after < completed + DAY2_RESUME_TRIALS:
+        raise AssertionError(f"day2 restore: {name} at {after} completions after the resume")
+    return {"backup_ms": backup_ms, "restore_ms": restore_ms, "compare_ms": compare_ms,
+            "manifest": [{k: e[k] for k in ("index", "address", "seq", "epoch", "docs")}
+                         for e in manifest["shards"]],
+            "backup_bytes": sum(os.path.getsize(os.path.join(out_dir, f))
+                                for f in os.listdir(out_dir)),
+            "restored_counts": dict(counts), "fresh_shards": len(fresh),
+            "audit_ms": audit_ms, "audit_topology": topology,
+            "resumed": {"experiment": name, "completed_before": completed,
+                        "completed_after": after, "wall_s": wall_s,
+                        **_resumed("restore", prof)}}
+
+
+def phase_day2(device, tmp, plane, q=CLI_Q, timeout=600):
+    """The day-2 storage operations on the ``network`` phase's replicated
+    two-shard plane, restarted from its SQLite files (primaries on their
+    ports, so the ring is the same): (a) grow and rebalance, (b) a live
+    drain, (c) backup and restore onto another shard count, each followed
+    by resumed hunts.  Every server and admin command is a host process.
+    Returns ``fused_gram``'s launches in each run."""
+    from orion_tpu_torch.storage.base import create_storage
+    from orion_tpu_torch.storage.shard import HashRing
+
+    run_dir = os.path.join(tmp, "day2")
+    os.makedirs(run_dir)
+    shutil.copy(plane["script"], os.path.join(run_dir, "hartmann6.py"))
+    with open(plane["secret"]) as handle:
+        secret = handle.read().strip()
+    quorum = ["--quorum", "1", "--quorum-timeout", str(QUORUM_TIMEOUT_S), "--secret-file",
+              plane["secret"]]
+    with DBServers(run_dir, device) as servers:
+        replicas = servers.start(*[(f"replica{i}", ["--replica", "--persist", os.path.join(
+            plane["dir"], f"replica{i}.sqlite"), *quorum]) for i in range(2)])
+        primaries = servers.start(*[(f"primary{i}", [
+            "--port", plane["primaries"][i].rpartition(":")[2], "--replicate-to", replicas[i],
+            "--persist", os.path.join(plane["dir"], f"primary{i}.sqlite"), *quorum])
+            for i in range(2)])
+        if primaries != plane["primaries"]:
+            raise AssertionError(f"day2: primaries restarted at {primaries}")
+        old_ring = HashRing(primaries)
+        big = [_exp_id(name) for name in plane["names"]]
+        port, ring = _pick_port(old_ring, primaries, big,
+                                {int(a.rpartition(":")[2]) for a in primaries + replicas})
+        stays_on = old_ring.lookup(big[0])
+        names = {
+            "moved": _pick_name("day2-grow", lambda e: ring.lookup(e) != old_ring.lookup(e)),
+            "live": _pick_name("day2-live", lambda e: ring.lookup(e) == old_ring.lookup(e)
+                               == stays_on),
+            "restored": _pick_name("day2-restore",
+                                   lambda e: ring.lookup(e) == old_ring.lookup(e)),
+        }
+        # Two fillers the grown ring moves and two it leaves: with the moved
+        # day2 experiment, a third of the nine experiments move.
+        fillers = {True: [], False: []}
+        for k in range(10000):
+            e = _exp_id(f"day2-filler-{k}")
+            moves = ring.lookup(e) != old_ring.lookup(e)
+            if len(fillers[moves]) < DAY2_FILLERS // 2:
+                fillers[moves].append(f"day2-filler-{k}")
+            if len(fillers[True]) + len(fillers[False]) == DAY2_FILLERS:
+                break
+        fillers = fillers[True] + fillers[False]
+        stanza = _stanza(primaries, replicas, plane["secret"])
+        config = _day2_config(run_dir, "plane", stanza, plane["algo"])
+        storage = create_storage(stanza)
+        t0 = time.perf_counter()
+        history = {}
+        for seed, (name, completed) in enumerate(
+                [(names[k], HISTORY) for k in ("moved", "live", "restored")]
+                + [(f, DAY2_FILLER_TRIALS) for f in fillers]):
+            history[name] = seed_history(
+                storage, name, ["-c", config], os.path.join(run_dir, "hartmann6.py"),
+                os.path.join(run_dir, f"executions-{name}.log"), device, completed, seed)
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        storage.db.close()
+        ctx = {"servers": servers, "run_dir": run_dir, "secret": secret,
+               "secret_path": plane["secret"], "quorum": quorum, "primaries": list(primaries),
+               "replicas": list(replicas), "algo": plane["algo"], "port": port, "ring": ring,
+               "exp_ids": big + [_exp_id(n) for n in list(names.values()) + fillers],
+               "history": history, "device": device, "q": q, "timeout": timeout,
+               "apps_before": servers.apps_before, "drained": stays_on, **names}
+        grow = run_day2_grow(ctx)
+        emit("day2", run="grow", setup_ms=setup_ms, **grow)
+        drain = run_day2_drain(ctx)
+        emit("day2", run="drain", **drain)
+        restore = run_day2_restore(ctx)
+        emit("day2", run="restore", **restore)
+        servers.check_host_only()
+    return {"grow": grow["resumed"]["fused_gram_launches"],
+            "drain": drain["live"]["fused_gram_launches"],
+            "restore": restore["resumed"]["fused_gram_launches"]}
 
 
 def main():
@@ -2382,7 +3143,9 @@ def main():
         telemetry_launches, telemetry_trials_per_s = run(
             "telemetry", phase_telemetry, device, tmp, cli_workers_trials_per_s,
             fleet_off_first="--fleet-off-first" in sys.argv[1:])
-        network_launches = run("network", phase_network, device, tmp, telemetry_trials_per_s)
+        network_launches, plane = run("network", phase_network, device, tmp,
+                                      telemetry_trials_per_s)
+        day2_launches = run("day2", phase_day2, device, tmp, plane)
     emit("seconds", **seconds)
 
     def case(shape):
@@ -2397,14 +3160,16 @@ def main():
         "replaces": "orion_tpu/ops/gram.py:68",
         "launches": (launches["fused_gram"] + asha_bo_launches + hunt_launches
                      + sum(cli_launches.values()) + evc_launches
-                     + sum(telemetry_launches.values()) + sum(network_launches.values())),
+                     + sum(telemetry_launches.values()) + sum(network_launches.values())
+                     + sum(day2_launches.values())),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
                              "hunt": hunt_launches, "cli": sum(cli_launches.values()),
                              "cli_runs": cli_launches, "evc": evc_launches,
                              "telemetry": sum(telemetry_launches.values()),
                              "telemetry_runs": telemetry_launches,
                              "network": sum(network_launches.values()),
-                             "network_runs": network_launches},
+                             "network_runs": network_launches,
+                             "day2": sum(day2_launches.values()), "day2_runs": day2_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -10,10 +10,10 @@ to the current schema (indexes + config backfill, reference
 between backends (``load`` also reads mongoexport files and reference-Oríon
 pickles), ``serve`` runs the network server (replicas, quorum), ``ring`` and
 ``status`` show a sharded topology, ``migrate-ids`` rewrites trial ids.
-
-``rebalance``, ``drain``, ``backup``, ``restore`` and ``ring --diff`` are
-ROADMAP queue A item 7b: they parse as in the reference and raise
-:class:`NotImplementedError` naming that item.
+The day-2 operations change a sharded topology: ``ring --diff`` shows the
+rebalance plan, ``rebalance`` migrates experiments to their ring homes,
+``drain`` empties a shard before it is removed, ``backup`` and ``restore``
+snapshot every shard and rebuild a fresh topology from the snapshots.
 """
 
 import contextlib
@@ -286,13 +286,6 @@ def add_subparser(subparsers):
 
     parser.set_defaults(func=lambda args: parser.print_help() or 1)
     return parser
-
-
-#: The day-2 operations that come with ROADMAP queue A item 7b.
-_DAY2 = (
-    "{command} is not ported yet (ROADMAP queue A item 7b: rebalance, "
-    "drain, backup/restore, ring --diff)"
-)
 
 
 def _common(parser):
@@ -840,16 +833,28 @@ def _sharded_router_or_error(args):
     return storage, router
 
 
+def _print_plan(plan):
+    summary = plan.summary()
+    print(
+        f"rebalance plan: {summary['moves']} of {summary['experiments']} "
+        f"experiment(s) move ({summary['move_fraction']:.1%}); "
+        f"{summary['stays']} already home"
+    )
+    for move in plan.moves:
+        print(f"  {move.describe()}")
+    for exp_id, homes in plan.strays:
+        print(f"  STRAY {exp_id}: found on shards {homes} with no placement record")
+
+
 def main_ring(args):
     """`db ring`: the operator's placement oracle — which shard owns each
     experiment, and what the topology looks like, computed from the SAME
     ring every router instance builds (no server round trips needed for
     the placement itself; the experiment list is read through the
-    router).  ``--diff`` (the rebalance plan) is ROADMAP queue A item 7b."""
+    router).  ``--diff`` shows the rebalance plan instead: where each
+    displaced experiment currently lives vs where the ring now puts it."""
     from orion_tpu_torch.cli.base import describe_storage_topology
 
-    if getattr(args, "diff", False):
-        raise NotImplementedError(_DAY2.format(command="db ring --diff"))
     storage, router = _sharded_router_or_error(args)
     if router is None:
         return 1
@@ -864,6 +869,19 @@ def main_ring(args):
             f"  shard {shard['index']}: {shard['address']}  "
             f"replicas: {replicas}{serving}"
         )
+    if getattr(args, "diff", False):
+        from orion_tpu_torch.storage.rebalance import Rebalancer
+
+        plan = Rebalancer(router).plan()
+        _print_plan(plan)
+        if plan.moves:
+            n = len(topology["shards"])
+            print(
+                f"(~1/N invariant: {plan.move_fraction:.1%} moving vs "
+                f"1/{n} = {1 / n:.1%} expected after adding one shard)"
+            )
+            print("run `orion-tpu-torch db rebalance` to execute this plan")
+        return 0
     docs = storage.fetch_experiments({})
     if not docs:
         print("no experiments in storage")
@@ -879,13 +897,112 @@ def main_ring(args):
 
 
 def main_rebalance(args):
-    """`db rebalance`: the live migrator is ROADMAP queue A item 7b."""
-    raise NotImplementedError(_DAY2.format(command="db rebalance"))
+    """`db rebalance`: execute the ring diff — migrate every displaced
+    experiment to its ring home through the crash-resumable placement
+    state machine (storage/rebalance.py).  Re-run after any crash: the
+    plan is recomputed from the standing placement docs and resumes."""
+    from orion_tpu_torch.storage.rebalance import Rebalancer
+
+    _storage, router = _sharded_router_or_error(args)
+    if router is None:
+        return 1
+    rebalancer = Rebalancer(router, fence_grace=args.fence_grace)
+    plan = rebalancer.plan()
+    _print_plan(plan)
+    if args.dry_run or not plan.moves:
+        return 1 if plan.strays else 0
+    if plan.strays:
+        print("ERROR: strays present — resolve before rebalancing")
+        return 1
+    rebalancer.run(plan)
+    moved = len(plan.moves)
+    print(f"rebalanced {moved} experiment(s); placement == ring again")
+    return 0
+
+
+def _resolve_shard_arg(router, value):
+    """A ``db drain`` SHARD operand: an index or a ring identity."""
+    try:
+        index = int(value)
+    except ValueError:
+        index = None
+        for shard in router.describe_topology()["shards"]:
+            if value in (shard["address"], shard["primary"]):
+                index = shard["index"]
+                break
+    return index
 
 
 def main_drain(args):
-    """`db drain`: the shard drainer is ROADMAP queue A item 7b."""
-    raise NotImplementedError(_DAY2.format(command="db drain"))
+    """`db drain SHARD`: run the ring diff BEFORE the shard disappears —
+    migrate every resident experiment to its post-removal ring home
+    (storage/drain.py), verify the shard is empty, then tell the operator
+    to drop it from the shards: stanza.  Re-run after any crash: the plan
+    is recomputed from the standing placement docs and resumes."""
+    import sys
+
+    from orion_tpu_torch.storage.drain import Drainer
+    from orion_tpu_torch.utils.exceptions import DatabaseError
+
+    _storage, router = _sharded_router_or_error(args)
+    if router is None:
+        return 1
+    index = _resolve_shard_arg(router, args.shard)
+    if index is None:
+        print(
+            f"ERROR: no shard matches {args.shard!r} — pass an index or a "
+            "ring identity from `db status`",
+            file=sys.stderr,
+        )
+        return 1
+    try:
+        drainer = Drainer(router, index, fence_grace=args.fence_grace)
+    except DatabaseError as exc:
+        print(f"ERROR: {exc}", file=sys.stderr)
+        return 1
+    plan = drainer.plan()
+    print(
+        f"drain shard {index} ({drainer.drain_identity}): "
+        f"{len(plan.moves)} experiment(s) to move "
+        f"(ring share {drainer.ring_share():.1%})"
+    )
+    for move in plan.moves:
+        print(f"  {move.describe()}")
+    for exp_id, homes in plan.strays:
+        print(f"  STRAY {exp_id}: needs `db rebalance` first (shards {homes})")
+    if args.dry_run:
+        return 1 if plan.strays else 0
+    if plan.strays:
+        print(
+            "ERROR: strays present — run `orion-tpu-torch db rebalance` first, "
+            "then drain",
+            file=sys.stderr,
+        )
+        return 1
+    try:
+        drainer.run(plan)
+    except DatabaseError as exc:
+        print(f"ERROR: drain failed: {exc}", file=sys.stderr)
+        print(f"re-run `orion-tpu-torch db drain {args.shard}` to resume", file=sys.stderr)
+        return 1
+    residual = drainer.residual_experiments()
+    if residual:
+        print(
+            f"ERROR: {len(residual)} experiment(s) still resident after the "
+            f"drain: {residual[:3]} — re-run to resume",
+            file=sys.stderr,
+        )
+        return 1
+    print(
+        f"shard {index} drained: {len(plan.moves)} experiment(s) moved, "
+        "0 resident"
+    )
+    print(
+        f"now remove {drainer.drain_identity} from the storage shards: "
+        "stanza (every router picks the new ring up via set_topology / "
+        "restart) and retire the server"
+    )
+    return 0
 
 
 def main_status(args):
@@ -979,13 +1096,68 @@ def main_migrate_ids(args):
 
 
 def main_backup(args):
-    """`db backup`: the topology snapshot is ROADMAP queue A item 7b."""
-    raise NotImplementedError(_DAY2.format(command="db backup"))
+    """`db backup --out DIR`: one consistent snapshot per shard + manifest."""
+    import sys
+
+    from orion_tpu_torch.storage.backup import backup_topology
+    from orion_tpu_torch.utils.exceptions import DatabaseError
+
+    config = load_cli_config(args)
+    storage = setup_storage(config["storage"], force=True)
+    db = storage.db
+    if not hasattr(db, "_call") and not hasattr(db, "shard_connections"):
+        print(
+            "ERROR: `db backup` snapshots network/sharded storage; for "
+            "file-backed storage use `db dump`",
+            file=sys.stderr,
+        )
+        return 1
+    try:
+        manifest = backup_topology(db, args.out)
+    except DatabaseError as exc:
+        print(f"ERROR: backup failed: {exc}", file=sys.stderr)
+        return 1
+    total = sum(entry["docs"] for entry in manifest["shards"])
+    for entry in manifest["shards"]:
+        print(
+            f"  shard {entry['index']} ({entry['address']}): "
+            f"{entry['docs']} docs at seq {entry['seq']} epoch {entry['epoch']}"
+        )
+    print(f"backed up {total} documents from "
+          f"{len(manifest['shards'])} shard(s) to {args.out}")
+    return 0
 
 
 def main_restore(args):
-    """`db restore`: the topology restore is ROADMAP queue A item 7b."""
-    raise NotImplementedError(_DAY2.format(command="db restore"))
+    """`db restore --src DIR`: rebuild a fresh topology from a backup."""
+    import sys
+
+    from orion_tpu_torch.storage.backup import restore_topology
+    from orion_tpu_torch.utils.exceptions import DatabaseError
+
+    config = load_cli_config(args)
+    storage = setup_storage(config["storage"], force=True)
+    db = storage.db
+    if not hasattr(db, "apply_batch"):
+        print(
+            "ERROR: `db restore` targets network/sharded storage; for "
+            "file-backed storage use `db load`",
+            file=sys.stderr,
+        )
+        return 1
+    try:
+        summary = restore_topology(db, args.src, require_empty=not args.force)
+    except DatabaseError as exc:
+        print(f"ERROR: restore failed: {exc}", file=sys.stderr)
+        return 1
+    for collection, count in sorted(summary["collections"].items()):
+        if count:
+            print(f"  {collection}: {count}")
+    print(
+        f"restored {summary['documents']} documents through the current "
+        "ring; run `orion-tpu-torch audit --all` to verify"
+    )
+    return 0
 
 
 def main_setup(args):

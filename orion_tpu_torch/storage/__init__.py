@@ -16,8 +16,12 @@ Backends of the port:
 - ``shards:`` — :class:`~orion_tpu_torch.storage.shard.ShardedNetworkDB`,
   the consistent-hash router over replicated network shards.
 
-Rebalancing, draining, backup and fault injection are ROADMAP queue A item
-7b; the audit is :mod:`orion_tpu_torch.storage.audit`.
+The day-2 operations on a sharded topology are
+:mod:`~orion_tpu_torch.storage.rebalance`, :mod:`~orion_tpu_torch.storage.drain`
+and :mod:`~orion_tpu_torch.storage.backup`; fault injection and the soak
+harness are :mod:`~orion_tpu_torch.storage.faults` and
+:mod:`~orion_tpu_torch.storage.soak`; the audit is
+:mod:`orion_tpu_torch.storage.audit`.
 """
 
 from orion_tpu_torch.storage.backends import PickledDB

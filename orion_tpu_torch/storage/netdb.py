@@ -101,7 +101,7 @@ _MUTATING_OPS = frozenset(
 # pushers (and operators) use to measure replica lag, the promotion op a
 # router's election sends to the most-caught-up replica, the
 # replica-adoption op auto-reprovisioning sends to a short primary, and the
-# consistent-snapshot export behind `db backup` (ROADMAP item 7b in the port).  All require
+# consistent-snapshot export behind `db backup`.  All require
 # authentication — the replication stream is a full write channel, and
 # promotion/adoption/snapshot reshape or export the whole store.
 _SERVER_OPS = frozenset({"replicate", "seq", "promote", "adopt_replica", "snapshot"})
@@ -1223,7 +1223,7 @@ class DBServer(socketserver.ThreadingTCPServer):
         }
 
     def snapshot_payload(self):
-        """The ``snapshot`` wire op behind ``db backup`` (ROADMAP item 7b): the same
+        """The ``snapshot`` wire op behind ``db backup``: the same
         consistent full-state dump replica resyncs ship (taken under the
         replication lock — no mutation interleaves), seq/epoch-stamped so
         the backup manifest records exactly which position it captured."""

@@ -46,8 +46,11 @@ storage protocol, so nothing above this layer changes):
   fan-out machinery, byte-identical wire traffic.
 
 The placement collection's read side (``placement_doc_id``, fences) is
-here in full; the day-2 tools that write it (rebalance, drain, backup, the
-fault harness and the soak) are ROADMAP queue A item 7b.
+here; the day-2 tools that write it are ``storage/rebalance.py`` and
+``storage/drain.py``, and the soak harness (``storage/soak.py``) drives
+many simulated workers against a topology of real servers under
+fault-proxy partitions and shard restarts: the pass bar is a clean
+``orion-tpu-torch audit --all`` on every shard and zero lost observations.
 """
 
 import functools
@@ -111,7 +114,7 @@ DEFAULT_PROMOTE_AFTER_S = 1.5
 DEFAULT_REPROVISION_AFTER_S = 5.0
 
 #: Collection holding per-experiment placement override docs (live ring
-#: rebalancing, ROADMAP item 7b).  Routers consult it BEFORE the
+#: rebalancing, storage/rebalance.py).  Routers consult it BEFORE the
 #: ring; the docs live on the experiment's RING shard so any router can
 #: find them without knowing the answer.
 PLACEMENT_COLLECTION = "_placement"
@@ -744,12 +747,12 @@ class ShardedNetworkDB:
 
     def shard_connections(self):
         """``[(index, primary NetworkDB), ...]`` — the per-shard direct
-        surface the audit tooling uses to verify every shard alone."""
+        surface the soak/audit tooling uses to verify every shard alone."""
         return [(s.index, s.primary) for s in self._shards]
 
     def set_topology(self, shards, vnodes=None):
         """Rebuild the ring and shard set IN PLACE for a new topology —
-        the router half of live rebalancing (``db rebalance``, ROADMAP item 7b).
+        the router half of live rebalancing (``orion-tpu-torch db rebalance``).
 
         Shards whose identity (original primary ``host:port``) AND replica
         set survive keep their connections, counters, epoch floors and

@@ -273,15 +273,19 @@ def _space_for(name):
 
 
 def _all_names():
+    """The port's built-in algorithms (``orion_tpu_torch.testing`` registers
+    ``dumbalgo`` in the same registry when a test imports it)."""
     import orion_tpu_torch.algo.base as base
 
     base._import_builtins()
-    return algo_registry.names()
+    return [name for name in algo_registry.names()
+            if algo_registry.get(name).__module__.startswith("orion_tpu_torch.algo.")]
 
 
 def test_registry_holds_every_reference_name():
     """The reference's built-in algorithms (not plugins other tests
-    register, such as ``orion_tpu.testing``'s) all have a port."""
+    register, such as ``orion_tpu.testing``'s and
+    ``orion_tpu_torch.testing``'s ``dumbalgo``) all have a port."""
     from orion_tpu.algo.base import _import_builtins as jax_import_builtins
     from orion_tpu.algo.base import algo_registry as jax_registry
 

@@ -547,3 +547,86 @@ def test_network_store_gp_round_launches_fused_gram_at_the_main_shape(cuda, monk
     finally:
         server.shutdown()
         server.server_close()
+
+
+@pytest.mark.cuda
+def test_rebalanced_experiment_resumes_tpu_bo_with_a_gp_round(cuda, monkeypatch):
+    """A q=1024 ``optimize(tpu_bo)`` experiment on a three-shard plane of
+    servers in this process moves to a fourth shard (``Rebalancer``): its
+    documents byte-identical on the destination, the source copy and the
+    placement override gone, the destination's audit clean.  Resumed
+    through a fresh four-shard router, its next round is a GP round that
+    launches the kernel at 16384 x 256 x 6."""
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.client.experiment import optimize
+    from orion_tpu_torch.storage.audit import audit_storage
+    from orion_tpu_torch.storage.base import DocumentStorage, create_storage
+    from orion_tpu_torch.storage.documents import dumps_canonical
+    from orion_tpu_torch.storage.netdb import DBServer
+    from orion_tpu_torch.storage.rebalance import Rebalancer
+    from orion_tpu_torch.storage.shard import PLACEMENT_COLLECTION, HashRing
+
+    shapes = []
+    plan = gram._launch_plan
+
+    def recording_plan(m, n, d, aligned):
+        shapes.append((m, n, d))
+        return plan(m, n, d, aligned)
+
+    monkeypatch.setattr(gram, "_launch_plan", recording_plan)
+    started = []
+
+    def serve():
+        server = DBServer(port=0)
+        server.serve_background()
+        started.append(server)
+        return "%s:%s" % server.address
+
+    def stanza(addresses):
+        return {"type": "network", "shards": [{"address": a} for a in addresses]}
+
+    priors = {f"x{i}": "uniform(0, 1)" for i in range(6)}
+    try:
+        three = [serve() for _ in range(3)]
+        storage = create_storage(stanza(three))
+        stats = optimize(None, priors, max_trials=1024, batch_size=1024, algorithm=HUNT_ALGO,
+                         seed=0, batch_eval=hartmann6, storage=storage, name="day2")
+        assert stats["trials_completed"] == 1024
+        [exp] = storage.fetch_experiments({"name": "day2"})
+        src = HashRing(three).lookup(exp["_id"])
+        for _ in range(40):  # each new address re-rolls the four-shard ring
+            four = three + [serve()]
+            if HashRing(four).lookup(exp["_id"]) != src:
+                break
+        dst = HashRing(four).lookup(exp["_id"])
+        assert dst != src
+        before = sorted(dumps_canonical(d) for d in storage.db.read(
+            "trials", {"experiment": exp["_id"]}))
+        storage = create_storage(stanza(four))
+        router = storage.db
+        rebalancer = Rebalancer(router, fence_grace=0)
+        moves = rebalancer.run().moves
+        assert [(m.exp_id, m.src_index, m.dst_index) for m in moves] == [(exp["_id"], src, dst)]
+        conns = dict(router.shard_connections())
+        assert sorted(dumps_canonical(d) for d in conns[dst].read(
+            "trials", {"experiment": exp["_id"]})) == before
+        assert conns[src].read("trials", {"experiment": exp["_id"]}) == []
+        assert all(c.read(PLACEMENT_COLLECTION, {}) == [] for c in conns.values())
+        assert all(r.ok for r in audit_storage(DocumentStorage(conns[dst]), lost_timeout=3600.0))
+        launches = gram.fused_gram.launches
+        shapes.clear()
+        storage = create_storage(stanza(four))  # a router with no placement cached
+        # Another seed: with seed 0 again the new instance's first draws are
+        # the random round's points, and their duplicates send the producer
+        # back for another round.
+        stats = optimize(None, priors, max_trials=2048, batch_size=1024, algorithm=HUNT_ALGO,
+                         seed=1, batch_eval=hartmann6, storage=storage, name="day2")
+        assert stats["trials_completed"] == 2048
+        assert gram.fused_gram.launches - launches == len(shapes) >= 1, shapes
+        assert set(shapes) == {(16384, 256, 6)}, shapes
+        assert conns[dst].count("trials", {"experiment": exp["_id"], "status": "completed"}) \
+            == 2048
+    finally:
+        for server in started:
+            server.shutdown()
+            server.server_close()

@@ -3,9 +3,10 @@
 ``dump`` byte for byte, ``load`` of the reference's dumps, mongoexport
 arrays and reference-Oríon pickles, ``copy``, ``setup``/``test``/``upgrade``
 and their aliases, ``ring`` and ``status --json`` over a replicated
-two-shard plane, ``db serve`` as a process, the day-2 commands that raise
-naming ROADMAP item 7b, and a two-worker ``tpu_bo`` hunt on the CPU over a
-port server."""
+two-shard plane, ``db serve`` as a process, the day-2 commands (``ring
+--diff``, ``rebalance``, ``drain``, ``backup``, ``restore``) on one plane of
+port servers, and a two-worker ``tpu_bo`` hunt on the CPU over a port
+server."""
 
 import json
 import math
@@ -19,6 +20,7 @@ import sys
 import pytest
 import yaml
 from test_torch_netdb import _client, servers  # noqa: F401
+from test_torch_rebalance import load, pick_names, populate, router, save, shard_state
 
 from orion_tpu.cli import main as ref_main
 from orion_tpu.storage.base import create_storage as ref_create_storage
@@ -225,9 +227,87 @@ def test_ring_and_status_refuse_an_unsharded_store(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["rebalance"], ["drain", "0"], ["backup", "--out", "b"],
                                   ["restore", "--src", "b"], ["ring", "--diff"]])
-def test_day2_commands_raise_naming_item_7b(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        main(["db", *argv, "--storage-path", str(tmp_path / "x.sqlite")])
+def test_day2_commands_raise_naming_item_7b(tmp_path, capsys, argv):
+    """The day-2 commands are ported: on an unsharded SQLite store each
+    refuses as the reference's does (same exit code and output, but the
+    program's name), where it raised ``NotImplementedError`` before."""
+    db = str(tmp_path / "x.sqlite")
+    port = _run(main, ["db", *argv, "--storage-path", db], capsys)
+    ref = _run(ref_main, ["db", *argv, "--storage-path", db], capsys)
+    assert port[0] == ref[0] == 1
+    assert [text.replace("orion-tpu-torch", "orion-tpu") for text in port[1:]] == list(ref[1:])
+    assert (port[1] + port[2]).strip()
+
+
+def _both(started, saved, argv, capsys):
+    """``argv`` through the reference's CLI and, the servers' stores loaded
+    back, through the port's: each one's exit code, output (the program's
+    name folded) and the servers' documents after it."""
+    out = {}
+    for name, fn in (("ref", ref_main), ("port", main)):
+        load(started, saved)
+        rc, text, err = _run(fn, argv, capsys)
+        out[name] = (rc, text.replace("orion-tpu-torch", "orion-tpu"),
+                     err.replace("orion-tpu-torch", "orion-tpu"), shard_state(started))
+    return out["port"], out["ref"]
+
+
+def _config(tmp_path, name, started):
+    conf = tmp_path / name
+    conf.write_text(yaml.safe_dump({"storage": {"type": "network", "shards": [
+        {"address": "%s:%s" % s.address} for s in started]}}))
+    return str(conf)
+
+
+def test_day2_commands_match_the_reference_on_a_sharded_plane(tmp_path, capsys, servers):
+    """Over one plane of port servers, both CLIs on the same stores:
+    ``ring --diff`` and ``rebalance --dry-run`` print the reference's plan
+    for a grown ring; ``rebalance`` moves the same experiments to the same
+    documents; ``drain`` of the busiest shard, then its ``--dry-run``
+    showing nothing resident; ``backup`` and a ``restore`` onto a fresh
+    two-shard plane."""
+    started = [servers("port") for _ in range(4)]
+    names = pick_names(["%s:%s" % s.address for s in started[:3]],
+                       ["%s:%s" % s.address for s in started])
+    db = router("port", [{"host": s.address[0], "port": s.address[1]} for s in started[:3]])
+    populate(db, names)
+    db.remove("telemetry", {})
+    db.close()
+    conf4 = _config(tmp_path, "four.yaml", started)
+    saved = save(started)
+    for argv in (["ring", "--diff"], ["rebalance", "--dry-run"]):
+        port, ref = _both(started, saved, ["db", *argv, "-c", conf4], capsys)
+        assert port == ref and port[0] == 0
+    assert "rebalance plan: " in port[1] and " -> " in port[1]
+    port, ref = _both(started, saved, ["db", "rebalance", "--fence-grace", "0.05",
+                                       "-c", conf4], capsys)
+    assert port == ref and port[0] == 0
+    assert "placement == ring again" in port[1]
+    again = _run(main, ["db", "ring", "--diff", "-c", conf4], capsys)
+    assert again[0] == 0 and "rebalance plan: 0 of 12" in again[1]
+    saved = save(started)
+    busiest = max(range(4), key=lambda i: started[i].db.count("experiments", {}))
+    port, ref = _both(started, saved, ["db", "drain", str(busiest), "--fence-grace", "0.05",
+                                       "-c", conf4], capsys)
+    assert port == ref and port[0] == 0 and f"shard {busiest} drained" in port[1]
+    dry = _run(main, ["db", "drain", str(busiest), "--dry-run", "-c", conf4], capsys)
+    moves = dry[1].splitlines()[1:]
+    assert dry[0] == 0 and moves and all(line.endswith(" [moved]") for line in moves)
+    assert started[busiest].db.count("experiments", {}) == 0
+    survivors = [s for i, s in enumerate(started) if i != busiest]
+    conf3 = _config(tmp_path, "survivors.yaml", survivors)
+    backups = {}
+    for name, fn in (("ref", ref_main), ("port", main)):
+        backups[name] = str(tmp_path / f"backup-{name}")
+        rc, text, _ = _run(fn, ["db", "backup", "--out", backups[name], "-c", conf3], capsys)
+        backups[name, "out"] = (rc, text.replace(backups[name], "DIR"))
+    assert backups["port", "out"] == backups["ref", "out"] and backups["port", "out"][0] == 0
+    fresh = [servers("port") for _ in range(2)]
+    conf2 = _config(tmp_path, "fresh.yaml", fresh)
+    port, ref = _both(fresh, save(fresh), ["db", "restore", "--src", backups["port"],
+                                           "-c", conf2], capsys)
+    assert port == ref and port[0] == 0
+    assert "restored " in port[1] and "trials: 48" in port[1]
 
 
 # --- db serve as a process, and a hunt over it ------------------------------

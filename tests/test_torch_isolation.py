@@ -1,9 +1,9 @@
 """The port stands alone: ``orion_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX (``jax``, ``jaxlib``, ``optax``) nor any module of the JAX
 package ``orion_tpu`` — matched as the exact module or a dotted prefix, so
-``orion_tpu_torch`` itself does not count.  The telemetry plane's and the
-network plane's modules are also checked by name, and for importing
-without side effects."""
+``orion_tpu_torch`` itself does not count.  The telemetry plane's, the
+network plane's and the day-2 operations' modules are also checked by
+name, and for importing without side effects."""
 
 import ast
 import os
@@ -159,6 +159,48 @@ def test_network_plane_stands_alone():
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+DAY2_PLANE = ("storage.faults", "storage.rebalance", "storage.drain", "storage.backup",
+              "storage.soak", "testing")
+
+
+def test_day2_operations_stand_alone():
+    """The fault harness, the rebalancer, the drainer, backup and restore,
+    the soak harness and the shipped test harness are among the checked
+    files, and in a fresh interpreter importing them loads neither JAX nor
+    ``orion_tpu``, starts no thread, server or proxy, leaves telemetry off
+    and the storage singleton unset; the only registration is
+    ``dumbalgo`` in the port's algorithm registry."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in DAY2_PLANE:
+        assert os.path.join("orion_tpu_torch", *name.split(".")) + ".py" in files
+    modules = [f"orion_tpu_torch.{name}" for name in DAY2_PLANE]
+    code = (
+        "import importlib, sys, threading\n"
+        "from orion_tpu_torch.algo.base import algo_registry\n"
+        "import orion_tpu_torch.algo.base as base\n"
+        "base._import_builtins()\n"
+        "before = set(algo_registry.names())\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "from orion_tpu_torch.telemetry import TELEMETRY\n"
+        "from orion_tpu_torch.health import FLIGHT\n"
+        "import orion_tpu_torch.storage.base as storage_base\n"
+        "assert not TELEMETRY.enabled and not FLIGHT.enabled\n"
+        "assert storage_base._storage_singleton is None\n"
+        "assert set(algo_registry.names()) - before == {'dumbalgo'}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ORION_TPU_TELEMETRY", "ORION_TPU_FLIGHT", "ORION_TPU_METRICS_PORT")}
+    env["PYTHONPATH"] = ROOT
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
