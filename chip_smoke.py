@@ -18,12 +18,16 @@ non-zero; nothing is caught and passed over):
 4. ``main_path``: the headline round through the public API, at full width
    -- Hartmann6, 130 observed, ``tpu_bo`` with 16384 candidates, 40 fit
    steps, local_frac 0.3, trust region, RFF-Thompson, Matern-5/2, copula --
-   one warm-up ``suggest(1024)``, then 5 rounds of observe-16 +
-   ``suggest(1024)`` with every kernel's launch count zeroed just before and
-   read just after.
-5. ``profile``: one more round under ``torch.profiler``: launches, device
-   busy time and idle share, each stage's host and device ms from the
-   round's own ``suggest.*`` spans, and the top ops.
+   the signature's first ``suggest(1024)`` (an eager warm-up round, the
+   CUDA-graph capture and its instantiation; reported apart with the
+   capture's ms and graph nodes), then 5 rounds of observe-16 +
+   ``suggest(1024)``, each a replay of that graph, with every kernel's
+   launch count zeroed just before and read just after.
+5. ``profile``: two more rounds under ``torch.profiler``: one eager
+   (``_suggest_step`` called directly), whose ``suggest.*`` spans give each
+   stage's host and device ms, and one replayed, whose trace gives the
+   round's device busy time and idle share as the main path runs it;
+   launches and the top ops of each.
 6. ``regret``: the regret gate's scenario (``BENCH_REGRET_BASELINE.json``)
    through the port, seeds 0-4, judged by the port's copy of the gate.
 7. ``algorithms``: every other algorithm of the registry on the card, each
@@ -35,7 +39,8 @@ non-zero; nothing is caught and passed over):
    preset).  It checks that every row decodes inside the space, that no
    round repeats a point, that ``asha_bo`` on Ackley-50D launched
    ``fused_gram`` on its chunked path (8192 x 512 x 51), and that each
-   ``asha_bo`` seed ends below regret 20.0.
+   ``asha_bo`` seed ends below regret 20.0; one ``asha_bo`` round eager and
+   one replayed are profiled as in 5.
 8. ``hunt``: the library entry point, ``optimize()``, through the producer
    and storage at the main path's full width -- Hartmann6, ``tpu_bo`` as in
    4., q=1024, 5 rounds (one random, four GP) -- once on ``pickled`` storage
@@ -156,7 +161,20 @@ non-zero; nothing is caught and passed over):
    content, ``audit --all`` clean; the untouched 256-trial experiment
    resumed there for one GP round.  Each resumed GP round launches the
    kernel at 16384 x 256 x 6 (the workers' traces).
-14. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+14. ``device_plane``: (a) the main path's round at q=1024 and ``asha_bo``'s
+   at its preset, eager against replayed on the same plan (the same
+   injected draws): rows, health and GP hypers bitwise equal, the ms of
+   each; (b) a history crossing 128 -> 256 at the main path's width,
+   without the prewarmer (q=64: one synchronous recapture, attributed
+   ``fit_bucket 128→256``) and with it (q=32: none, and the prewarm's
+   capture ms); (c) the shared graph pool's bytes after every signature
+   this process captured, against 1.5x the largest of the three heaviest
+   signatures' pools, each captured alone in a fresh pool; (d) a worker
+   process writes a store with telemetry on (q=1024, speculative suggest),
+   and ``profile --json``, ``top --json`` and ``info`` over it show the
+   capture table, the worker's captures, memory and host/device ratio, the
+   ratio line and the health records' ``mem_bytes``.
+15. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -377,13 +395,24 @@ def phase_main_path(device, q=Q, rounds=ROUNDS, **overrides):
     from orion_tpu_torch.health import DEVICE_HEALTH_FIELDS
     from orion_tpu_torch.ops.gram import fused_gram
 
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+
     rng = np.random.default_rng(0)
     algo = _make_algo(0, device, **overrides)
     x = rng.uniform(size=(N_HISTORY, 6)).astype(np.float32)
     _observe(algo, x, _hartmann6(x))
+    captured = len(STEP_GRAPHS.entries())
     t0 = time.perf_counter()
-    algo.suggest(q)  # warm-up: first fit at pad 256, allocator, kernel load
+    # The signature's first round: an eager warm-up round (the first fit at
+    # pad 256, the kernel's load), the capture and the instantiation.
+    algo.suggest(q)
     warmup_ms = (time.perf_counter() - t0) * 1e3
+    new = [entry for _dev, _sig, entry in STEP_GRAPHS.entries()[captured:]]
+    if len(new) != 1 or new[0].graph is None:
+        raise AssertionError(f"the main path's first round captured {len(new)} graphs")
+    capture = {"capture_ms": new[0].capture_ms, "instantiate_ms": new[0].instantiate_ms,
+               "graph_nodes": new[0].graph_nodes, "pool_bytes": new[0].pool_bytes,
+               "launches_in_graph": len(new[0].launches)}
     times = []
     fused_gram.launches = 0
     for _ in range(rounds):
@@ -405,22 +434,27 @@ def phase_main_path(device, q=Q, rounds=ROUNDS, **overrides):
     if launches["fused_gram"] < rounds:
         raise AssertionError(f"fused_gram launched {launches['fused_gram']} times "
                              f"in {rounds} rounds")
+    if len(STEP_GRAPHS.entries()) != captured + 1:
+        raise AssertionError("a timed main-path round captured a new signature")
     median = statistics.median(times)
     emit("main_path", q=q, rounds=rounds, round_ms=times, median_round_ms=median,
-         suggestions_per_s=q / (median / 1e3), warmup_ms=warmup_ms, launches=launches,
+         suggestions_per_s=q / (median / 1e3), warmup_ms=warmup_ms, capture=capture,
+         launches=launches,
          unique_rows=int(len({tuple(r) for r in cube})),
          health={f: health[f] for f in DEVICE_HEALTH_FIELDS})
     return algo, launches, median
 
 
-def profile_round(round_fn, device):
+def profile_round(round_fn, device, check_stages=True):
     """One call of ``round_fn`` under ``torch.profiler``: kernels launched,
     the device's busy time (the union of its kernel intervals) against the
     call's wall time, each ``suggest.*`` stage's host and device ms (the
     ``record_function`` spans of the algorithms' suggest paths and
     ``_suggest_step``; a kernel counts for the span it starts in), and the
     ops that take the most device and host time.  ``idle_share`` is None
-    when the trace holds no device events."""
+    when the trace holds no device events.  ``check_stages=False`` for a replayed
+    round: a CUDA graph runs no Python, so it has no ``suggest.*`` span but
+    the draws'."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -456,8 +490,9 @@ def profile_round(round_fn, device):
         i = bisect.bisect_right(starts, start) - 1
         inside = i >= 0 and start < spans[i][1]
         stages[spans[i][2] if inside else "outside_spans"][1] += (stop - start) / 1e3
-    for name in ("suggest.draws", "suggest.fit_gp", "suggest.candidates", "suggest.polish",
-                 "suggest.acquire", "suggest.ei_rank", "suggest.select"):
+    required = ("suggest.draws", "suggest.fit_gp", "suggest.candidates", "suggest.polish",
+                "suggest.acquire", "suggest.ei_rank", "suggest.select")
+    for name in required if check_stages else required[:1]:
         if name not in stages:
             raise AssertionError(f"the profiled round recorded no {name} span")
     averages = prof.key_averages()
@@ -473,12 +508,44 @@ def profile_round(round_fn, device):
                 top_self_cpu_ms=top("self_cpu_time_total"))
 
 
+def eager_round(algo, plan_fn):
+    """One round of ``algo`` run eagerly: ``_suggest_step`` called on the
+    plan ``plan_fn`` builds, as a signature's first (warm-up) round runs;
+    the state goes back to the algorithm as a suggest's would."""
+    from orion_tpu_torch.algo import tpu_bo as tbo
+
+    plan = plan_fn()
+    rows, state = tbo._suggest_step(*plan.arrays, **plan.statics)
+    algo._gp_state = state
+    return rows[:plan.num].cpu()
+
+
+def replayed(algo, plan_fn):
+    """Whether the round ``plan_fn`` would build is captured already (the
+    next suggest replays it).  The model stream is put back after."""
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+
+    state = algo.model_generator.get_state()
+    try:
+        plan = plan_fn()
+    finally:
+        algo.model_generator.set_state(state)
+    return STEP_GRAPHS.has(algo.device, plan.signature)
+
+
 def phase_profile(algo, q=Q):
-    """One more main-path round under the profiler (:func:`profile_round`)."""
+    """Two more main-path rounds under the profiler (:func:`profile_round`):
+    one eager (``_suggest_step`` called directly), whose ``suggest.*``
+    spans give the per-stage breakdown, and one replayed, whose trace gives
+    the round's device idle share as the main path runs it."""
     rng = np.random.default_rng(1)
     xn = rng.uniform(size=(16, 6)).astype(np.float32)
     _observe(algo, xn, _hartmann6(xn))
-    emit("profile", q=q, **profile_round(lambda: algo.suggest_batch(q), algo.device))
+    plan_fn = lambda: algo.fused_step_plan(q)  # noqa: E731
+    emit("profile", q=q, round="eager",
+         **profile_round(lambda: eager_round(algo, plan_fn), algo.device))
+    emit("profile", q=q, round="replay", replayed=replayed(algo, plan_fn),
+         **profile_round(lambda: algo.suggest_batch(q), algo.device, check_stages=False))
 
 
 def regret_curve(seed, device, budget=192, q=16, n_init=16, algo_kwargs=None):
@@ -641,8 +708,14 @@ def phase_algorithms(device, runs=ALGO_RUNS):
                     raise AssertionError(f"{name} seed {seed}: regret {out['regret']} "
                                          f">= {ASHA_BO_REGRET_LIMIT}")
                 if seed == seeds[0]:
-                    emit("profile", run=name, q=batch,
-                         **profile_round(lambda: algo._sample_new(batch), device))
+                    plan_fn = lambda: algo._gp_plan(batch)  # noqa: E731
+                    emit("profile", run=name, q=batch, round="eager",
+                         **profile_round(lambda: eager_round(algo, plan_fn), device))
+                    algo._sample_new(batch)  # captures this signature if it is new
+                    emit("profile", run=name, q=batch, round="replay",
+                         replayed=replayed(algo, plan_fn),
+                         **profile_round(lambda: algo._sample_new(batch), device,
+                                         check_stages=False))
     return asha_bo_launches
 
 
@@ -1730,7 +1803,10 @@ def run_telemetry_fleet(tmp, device, off_first=False, workers=TELEMETRY_WORKERS,
         1 for e in events if e.get("ph") == "X" and e["name"].startswith("storage.")
         and any(r["pid"] == e["pid"] and r["ts"] <= e["ts"]
                 and e["ts"] + e["dur"] <= r["ts"] + r["dur"] for r in rounds))
-    dispatch = [s for s in spans if s["name"] == "suggest_step.dispatch"]
+    # A GP round books suggest_step.capture when it captured its signature
+    # (each worker's first), suggest_step.dispatch when it replayed.
+    dispatch = [s for s in spans if s["name"] in ("suggest_step.dispatch",
+                                                  "suggest_step.capture")]
     if (rc != 0 or len({e["pid"] for e in rounds}) != workers or not nested or not contained
             or not dispatch):
         raise AssertionError(f"telemetry: trace exited {rc}: producer.round on "
@@ -1751,8 +1827,8 @@ def run_telemetry_fleet(tmp, device, off_first=False, workers=TELEMETRY_WORKERS,
         raise AssertionError(f"telemetry: flight-record exited {rc}, events {dict(kinds)}")
 
     # The pool's cross-gram is n_candidates x (rows of the GP's buffer) x d:
-    # the dispatch span's ``n`` names the buffer, and each GP round whose
-    # work reaches the fused route launches the kernel once.
+    # the round span's ``n`` names the buffer, and each GP round whose work
+    # reaches the fused route launches the kernel once.
     d = MAIN_SHAPE[2]
     fused = [s for s in dispatch
              if on["unseeded"]["n_candidates"] * s["args"]["n"] * d >= _FUSED_MIN_WORK]
@@ -3114,6 +3190,251 @@ def phase_day2(device, tmp, plane, q=CLI_Q, timeout=600):
             "restore": restore["resumed"]["fused_gram_launches"]}
 
 
+#: The ``device_plane`` phase's bound: the shared graph pool after every
+#: signature this process captured, against the largest single signature's
+#: pool measured alone in a fresh pool.
+POOL_BOUND = 1.5
+
+
+def _plan_equal(got, want):
+    """Rows, health and GP hypers of two ``(rows, state)`` results, bitwise."""
+    rows, state = got
+    want_rows, want_state = want
+    return (torch.equal(rows, want_rows) and torch.equal(state.health, want_state.health)
+            and all(torch.equal(a, b) for a, b in zip(state.hypers, want_state.hypers)))
+
+
+def run_eager_against_replay(algo, plan_fn, label):
+    """(a) One plan of ``algo`` run eagerly and through the step graphs
+    (captured already by an earlier phase, else captured now), then
+    replayed twice: rows and health bitwise equal, with each one's ms."""
+    from orion_tpu_torch.algo import tpu_bo as tbo
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+
+    plan = plan_fn()
+
+    def timed(fn):
+        _sync(algo.device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(algo.device)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    eager, eager_ms = timed(lambda: tbo._suggest_step(*plan.arrays, **plan.statics))
+    captured_before = STEP_GRAPHS.has(algo.device, plan.signature)
+    outs, ms = [], []
+    for _ in range(3):
+        (out, _entry, _missed), t = timed(lambda: STEP_GRAPHS.run(
+            tbo._suggest_step, plan.signature, plan.arrays, plan.statics))
+        outs.append(out)
+        ms.append(t)
+    equal = [_plan_equal(out, eager) for out in outs]
+    if not all(equal):
+        raise AssertionError(f"{label}: a replayed round differs from the eager one: {equal}")
+    return {"path": label, "q": plan.statics["q"], "fit_bucket": plan.arrays[1].shape[0],
+            "captured_before": captured_before, "eager_ms": eager_ms, "graph_ms": ms,
+            "bitwise_equal": True}
+
+
+def run_bucket_crossing(device, prewarm, q):
+    """(b) A history crossing 128 -> 256 at the main path's width: 90
+    observed, a round at 128, ten more (the prewarm starts at 96 of 128),
+    a round, forty more, the crossing round at 256.  Returns the
+    synchronous recaptures the crossing round paid with their attribution,
+    and the prewarm's capture ms."""
+    from orion_tpu_torch.compiler_plane import COMPILE_REGISTRY
+    from orion_tpu_torch.telemetry import TELEMETRY
+
+    algo = _make_algo(11, device, prewarm=prewarm)
+    rng = np.random.default_rng(11)
+    was = TELEMETRY.enabled
+    TELEMETRY.enabled = True
+    try:
+        for n_new, suggest in ((90, True), (10, True), (40, False)):
+            x = rng.uniform(size=(n_new, 6)).astype(np.float32)
+            _observe(algo, x, _hartmann6(x))
+            algo._prewarmer.wait()
+            if suggest:
+                algo.suggest(q)
+        if algo._hist.fit_view()[0].shape[0] != 256:
+            raise AssertionError("the crossing round does not fit at 256 rows")
+        TELEMETRY.drain_spans()
+        t0 = time.perf_counter()
+        algo.suggest(q)
+        _sync(device)
+        crossing_ms = (time.perf_counter() - t0) * 1e3
+        spans = TELEMETRY.drain_spans()
+        warmed = [e for e in COMPILE_REGISTRY.entries()
+                  if e.kind == "prewarm" and e.fields["fit_bucket"] == 256
+                  and e.fields["q"] == str(q)]
+    finally:
+        TELEMETRY.enabled = was
+    recaptures = [s["args"]["changed"] for s in spans
+                  if s["name"] == "cuda_graph.capture" and s["args"]["kind"] == "recapture"]
+    return {"prewarm": prewarm, "q": q, "crossing_round_ms": crossing_ms,
+            "recaptures": len(recaptures), "attribution": recaptures,
+            "prewarm_capture_ms": warmed[-1].seconds * 1e3 if warmed else None,
+            "prewarm_failed": algo._prewarmer.failed_count()}
+
+
+def run_pool_bound(device):
+    """(c) The shared pool's bytes after every signature this process
+    captured, against the pools of the heaviest signatures (largest q x
+    candidates) captured alone, each in a fresh pool from its own static
+    inputs.  Measuring a subset alone can only lower the largest single
+    pool, which makes the bound stricter, never looser."""
+    import gc
+
+    from orion_tpu_torch.algo import tpu_bo as tbo
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS, StepGraphs
+    from torch.utils import _pytree as pytree
+
+    entries = [(sig, entry) for dev, sig, entry in STEP_GRAPHS.entries()
+               if entry.graph is not None]
+    shared = STEP_GRAPHS.pool_bytes()
+    heavy = sorted(entries, key=lambda se: -int(se[1].statics["q"])
+                   * int(se[1].statics["n_candidates"]))[:3]
+    alone = []
+    for sig, entry in heavy:
+        graphs = StepGraphs()
+        arrays = pytree.tree_unflatten([t.clone() if torch.is_tensor(t) else t
+                                        for t in entry.static_in], entry.in_spec)
+        graphs.run(tbo._suggest_step, sig, arrays, entry.statics)
+        alone.append({"fit_bucket": sig[0][0], "width": sig[0][1], "q": entry.statics["q"],
+                      "pool_bytes": graphs.pool_bytes()})
+        del graphs, arrays
+        gc.collect()
+        torch.cuda.empty_cache()
+    largest = max(a["pool_bytes"] for a in alone)
+    out = {"signatures": len(entries), "shared_pool_bytes": shared,
+           "largest_alone_bytes": largest, "alone": alone,
+           "ratio": shared / largest, "bound": POOL_BOUND}
+    if shared > POOL_BOUND * largest:
+        raise AssertionError(f"the shared graph pool holds {shared} bytes, over "
+                             f"{POOL_BOUND} x the largest signature's {largest}")
+    return out
+
+
+def _device_plane_worker(path):
+    """A worker process writing the ``device_plane`` store: an
+    ``ExperimentClient`` loop with telemetry and the flight recorder on, at
+    the main path's width (q=1024, four rounds) with speculative suggest,
+    so the producer books the device windows the host/device ratio reads;
+    the last flush forced, as a ``hunt`` worker's is.  Its first GP round
+    is this process's first capture."""
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.client.experiment import ExperimentClient
+    from orion_tpu_torch.core.experiment import build_experiment
+    from orion_tpu_torch.health import FLIGHT
+    from orion_tpu_torch.storage.base import create_storage
+    from orion_tpu_torch.telemetry import TELEMETRY
+
+    import orion_tpu_torch.device  # noqa: F401  (precision switches)
+
+    TELEMETRY.enabled = FLIGHT.enabled = True
+    storage = create_storage({"type": "sqlite", "path": path})
+    exp = build_experiment(storage, "device_plane", priors=HUNT_PRIORS, max_trials=4096,
+                           algorithms={"tpu_bo": dict(ALGO, speculative_suggest=True)},
+                           pool_size=Q).instantiate(seed=0)
+    client = ExperimentClient(exp)
+    while not client.is_done:
+        trials = client.suggest(Q)
+        cube = torch.as_tensor(exp.space.params_to_cube([t.params for t in trials]),
+                               device=exp.algorithm.device)
+        client.observe_all(trials, hartmann6(cube).cpu().numpy().tolist())
+    client.producer._flush_timings(force_metrics=True)
+
+
+def run_device_plane_commands(device, tmp):
+    """(d) ``profile``, ``top --json`` and ``info`` on the store one worker
+    process wrote (:func:`_device_plane_worker`), run in this process."""
+    import io
+
+    from orion_tpu_torch.cli import main as cli_main
+    from orion_tpu_torch.core.experiment import build_experiment
+    from orion_tpu_torch.storage.base import create_storage
+
+    path = os.path.join(tmp, "device_plane.sqlite")
+    proc = multiprocessing.get_context("spawn").Process(target=_device_plane_worker,
+                                                        args=(path,))
+    t0 = time.perf_counter()
+    proc.start()
+    proc.join(300)
+    if proc.exitcode != 0:
+        proc.kill()
+        raise AssertionError(f"the device-plane worker exited {proc.exitcode}")
+    worker_s = time.perf_counter() - t0
+
+    def run(*argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(list(argv))
+        return rc, out.getvalue()
+
+    base = ["-n", "device_plane", "--storage-path", path]
+    rc_profile, profile = run("profile", *base, "--json")
+    rc_top, top = run("top", *base, "--json")
+    rc_info, info = run("info", *base)
+    profile, top = json.loads(profile), json.loads(top)
+    storage = create_storage({"type": "sqlite", "path": path})
+    health = storage.fetch_health(build_experiment(storage, "device_plane",
+                                                   priors=HUNT_PRIORS))
+    [worker] = top["workers"].values()
+    out = {"worker_s": worker_s, "profile_captures": profile["compiles"],
+           "profile_retraces": profile["retraces"], "profile_counters": profile["counters"],
+           "profile_gauges": profile["gauges"],
+           "top_worker": {k: worker[k] for k in ("rounds", "compiles", "retraces", "mem_mb",
+                                                 "host_device_ratio")},
+           "info_compiler": [line for line in info.splitlines()
+                             if line.startswith(("captures:", "capture time", "HBM:"))],
+           "info_ratio": [line for line in info.splitlines()
+                          if line.startswith("host/device ratio")],
+           "health_mem_bytes": [d.get("mem_bytes") for d in health]}
+    if not (rc_profile == rc_top == rc_info == 0 and out["profile_captures"]
+            and worker["compiles"] and out["info_ratio"] and any(out["health_mem_bytes"])
+            and [line for line in out["info_compiler"] if line.startswith("HBM: plan max")]):
+        raise AssertionError(f"device-plane commands: {out}")
+    return out
+
+
+def phase_device_plane(device, tmp):
+    """The device plane: (a) eager against replayed rounds, (b) a bucket
+    crossing with and without the prewarmer, (c) the shared pool's bound,
+    (d) the commands over a telemetry store.  Returns ``fused_gram``'s
+    launches over the phase (zeroed just before, read just after)."""
+    from orion_tpu_torch.ops import gram
+
+    gram.fused_gram.launches = 0
+    main_algo = _make_algo(0, device)
+    x = np.random.default_rng(0).uniform(size=(N_HISTORY, 6)).astype(np.float32)
+    _observe(main_algo, x, _hartmann6(x))
+    emit("device_plane", part="eager_vs_replay", **run_eager_against_replay(
+        main_algo, lambda: main_algo.fused_step_plan(Q), "tpu_bo"))
+    from orion_tpu_torch.algo.base import create_algo
+    from orion_tpu_torch.benchmarks.functions import BENCHMARKS
+    from orion_tpu_torch.space.dsl import build_space
+
+    space = build_space(ACKLEY50)
+    asha = create_algo(space, {"asha_bo": ASHA_BO}, seed=0, device=device)
+    params = asha.suggest(512)
+    cube = space.params_to_cube(params)
+    values = BENCHMARKS["ackley50"]["fn"](torch.from_numpy(cube)).numpy()
+    asha.observe(params, [{"objective": float(v)} for v in values])
+    emit("device_plane", part="eager_vs_replay", **run_eager_against_replay(
+        asha, lambda: asha._gp_plan(512), "asha_bo"))
+    # Without the prewarmer first (q=64), then with it (q=32): the crossing
+    # round of each run is a signature no earlier run captured.
+    off = run_bucket_crossing(device, prewarm=False, q=64)
+    on = run_bucket_crossing(device, prewarm=True, q=32)
+    emit("device_plane", part="crossing", runs=[off, on])
+    if (off["attribution"] != ["fit_bucket 128→256"] or on["recaptures"] != 0
+            or on["prewarm_capture_ms"] is None):
+        raise AssertionError(f"bucket crossing: {off} {on}")
+    emit("device_plane", part="pool", **run_pool_bound(device))
+    emit("device_plane", part="commands", **run_device_plane_commands(device, tmp))
+    return gram.fused_gram.launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3146,6 +3467,7 @@ def main():
         network_launches, plane = run("network", phase_network, device, tmp,
                                       telemetry_trials_per_s)
         day2_launches = run("day2", phase_day2, device, tmp, plane)
+        device_plane_launches = run("device_plane", phase_device_plane, device, tmp)
     emit("seconds", **seconds)
 
     def case(shape):
@@ -3161,7 +3483,7 @@ def main():
         "launches": (launches["fused_gram"] + asha_bo_launches + hunt_launches
                      + sum(cli_launches.values()) + evc_launches
                      + sum(telemetry_launches.values()) + sum(network_launches.values())
-                     + sum(day2_launches.values())),
+                     + sum(day2_launches.values()) + device_plane_launches),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
                              "hunt": hunt_launches, "cli": sum(cli_launches.values()),
                              "cli_runs": cli_launches, "evc": evc_launches,
@@ -3169,7 +3491,8 @@ def main():
                              "telemetry_runs": telemetry_launches,
                              "network": sum(network_launches.values()),
                              "network_runs": network_launches,
-                             "day2": sum(day2_launches.values()), "day2_runs": day2_launches},
+                             "day2": sum(day2_launches.values()), "day2_runs": day2_launches,
+                             "device_plane": device_plane_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -7,36 +7,35 @@ fidelity, with the fidelity as one extra input column
 s = log(fid/low) / log(high/low) in [0, 1]; candidates are scored at s = 1
 (``fixed_tail_cols=1``), so points are picked by their predicted
 full-budget value.  A model round is the port's GP-BO step
-(:func:`orion_tpu_torch.algo.tpu_bo._suggest_step`, through
-:func:`~orion_tpu_torch.algo.tpu_bo.dispatch_suggest_step` and its
-``suggest_step.dispatch`` span); at the
-``asha_bo-ackley50`` preset its EI ranking runs the ``fused_gram`` kernel on
-the 8192 x 512 x 51 cross-gram.
-
-The reference builds each round as a ``FusedPlan``; the port decides the
-same things in :meth:`ASHABO._new_cube`: warm hypers from the last fit (or
-the cold start) and ``refit_steps`` when warm, the pow-2 q bucket with the
-rows cut to the request, ``local_sigma`` quantised to a power of 2, and the
+(:func:`orion_tpu_torch.algo.tpu_bo._suggest_step`), built as a
+:class:`~orion_tpu_torch.algo.tpu_bo.FusedPlan` by :meth:`ASHABO._gp_plan`
+(warm hypers from the last fit or the cold start, ``refit_steps`` when
+warm, the pow-2 q bucket, ``local_sigma`` quantised to a power of 2, the
 local GP on the ``tr_local_m`` nearest observations once the history
-outgrows it.
+outgrows it) and run by
+:func:`~orion_tpu_torch.algo.tpu_bo.run_fused_plan`: a CUDA graph captured
+once per signature.  At the ``asha_bo-ackley50`` preset its EI ranking runs
+the ``fused_gram`` kernel on the 8192 x 512 x 51 cross-gram.  ``prewarm``
+captures the next history bucket's round ahead of the crossing, as in
+``tpu_bo``.
 
-Not ported (the serve gateway's hooks): ``fused_step_plan``,
-``consume_fused_step``, ``finish_fused_rows``.  ``prewarm`` and
-``prewarm_fill`` are accepted and have no effect; ``use_mesh=True`` raises.
+Not ported (the serve gateway's hooks, ROADMAP queue A item 8):
+``fused_step_plan``, ``consume_fused_step``, ``finish_fused_rows``.
+``use_mesh=True`` raises.
 """
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from orion_tpu_torch.algo.asha import ASHA
 from orion_tpu_torch.algo.base import algo_registry
-from orion_tpu_torch.algo.gp.gp import init_hypers
 from orion_tpu_torch.algo.history import DeviceHistory, HostHistory, _next_pow2
+from orion_tpu_torch.algo.prewarm import DEFAULT_PREWARM_FILL, BucketPrewarmer
 from orion_tpu_torch.algo.sampling import clamp_objectives
 from orion_tpu_torch.algo.tpu_bo import (
-    dispatch_suggest_step,
-    sample_suggest_draws,
+    make_fused_plan,
+    maybe_prewarm_fused_step,
+    run_fused_plan,
     tr_update_batch,
 )
 
@@ -79,7 +78,7 @@ class ASHABO(ASHA):
         tr_perturb_dims=20,
         tr_update_every=None,
         prewarm=True,
-        prewarm_fill=0.75,
+        prewarm_fill=DEFAULT_PREWARM_FILL,
         n_devices=None,
         use_mesh=False,
         device=None,
@@ -127,6 +126,10 @@ class ASHABO(ASHA):
         self.tr_local_m = tr_local_m
         self.tr_perturb_dims = tr_perturb_dims
         self.tr_update_every = tr_update_every
+        self.prewarm = bool(prewarm)
+        self.prewarm_fill = float(prewarm_fill)
+        self._prewarmer = BucketPrewarmer()
+        self._last_q_bucket = None
         self._tr_length = tr_length_init
         self._tr_succ = 0
         self._tr_fail = 0
@@ -150,8 +153,9 @@ class ASHABO(ASHA):
         self._best_seen = np.inf
 
     # The fitted GP state is immutable-by-rebinding; `_hist` and `_host`
-    # implement copy-on-write in their own __deepcopy__.
-    _share_by_ref = ("space", "_gp_state")
+    # implement copy-on-write in their own __deepcopy__; the prewarmer's
+    # threads are shared, as in tpu_bo.
+    _share_by_ref = ("space", "_gp_state", "_prewarmer")
 
     # Views over the augmented host history.
     @property
@@ -218,6 +222,10 @@ class ASHABO(ASHA):
                 length_max=self.tr_length_max,
                 improve_tol=self.tr_improve_tol,
             )
+        # Last, after the sigma and box updates: local_sigma is a static of
+        # the round, and a warm before the update would capture a stale
+        # signature.
+        self._maybe_prewarm(batch=len(y32))
 
     def _update_top_tier(self, prev_count, s32, y32):
         """Incremental best-at-top-fidelity-tier tracking: a batch that
@@ -241,11 +249,29 @@ class ASHABO(ASHA):
                 self._top_best_idx = prev_count + int(at)
 
     # --- model-based sampling -----------------------------------------------
-    def _model_inputs(self, num):
-        """This round's ``_suggest_step`` inputs: ``(x, y, mask, best_x,
-        warm hypers, tr_length)`` on the device and the keyword arguments
-        (the q bucket, fit steps, quantised ``local_sigma``, ...)."""
+    def _maybe_prewarm(self, batch=0):
+        # The fidelity rides along as the fixed context column
+        # (fixed_tail_cols in _step_kw).
+        maybe_prewarm_fused_step(self, batch=batch)
+
+    def _step_kw(self):
+        return dict(
+            n_candidates=self.n_candidates, kernel=self.kernel, acq=self.acq,
+            fit_steps=self.fit_steps, refit_steps=self.refit_steps,
+            local_frac=self.local_frac,
+            # A power of 2: a static of the round that changes the
+            # candidates; a freely varying value would recapture each round.
+            local_sigma=float(2.0 ** round(np.log2(self._sigma))), beta=self.beta,
+            trust_region=self.trust_region, tr_length=self._tr_length,
+            tr_perturb_dims=self.tr_perturb_dims, y_transform=self.y_transform,
+            fixed_tail_cols=1,
+        )
+
+    def _gp_plan(self, num):
+        """This round's fidelity-augmented GP acquisition as a
+        :class:`~orion_tpu_torch.algo.tpu_bo.FusedPlan`."""
         n = self._host.count
+        self._last_q_bucket = _next_pow2(num, floor=8)
         # The trust box centres on the global incumbent (the s-lengthscale
         # decides how far to trust low fidelities); without it, on the best
         # observation at the top fidelity tier.
@@ -259,41 +285,20 @@ class ASHABO(ASHA):
             )
         else:
             x_dev, y_dev, mask_dev, _ = self._hist.fit_view()
-        warm = self._gp_state
-        if warm is None:
-            hypers = init_hypers(d + 1, device=self.device)
-            steps = self.fit_steps
-        else:
-            hypers = warm.hypers
-            steps = self.refit_steps if self.refit_steps is not None else self.fit_steps
         best_x = torch.from_numpy(self._host.x[best_row, :d].copy()).to(self.device)
-        tr = torch.tensor(self._tr_length, dtype=torch.float32, device=self.device)
-        kw = dict(
-            q=_next_pow2(num, floor=8), n_candidates=self.n_candidates, kernel=self.kernel,
-            acq=self.acq, fit_steps=steps, local_frac=self.local_frac,
-            # A power of 2: a static of the reference's compiled step that
-            # changes the candidates, so the port keeps the quantisation.
-            local_sigma=float(2.0 ** round(np.log2(self._sigma))), beta=self.beta,
-            trust_region=self.trust_region, tr_perturb_dims=self.tr_perturb_dims,
-            y_transform=self.y_transform, fixed_tail_cols=1,
+        step_kw = self._step_kw()
+        tr_length = step_kw.pop("tr_length")
+        return make_fused_plan(
+            self.model_generator, x_dev, y_dev, mask_dev, best_x, self._gp_state, num,
+            tr_length=tr_length, **step_kw,
         )
-        return (x_dev, y_dev, mask_dev, best_x, hypers, tr), kw
 
     def _new_cube(self, num):
         if self._host.count < self.n_init:
             return super()._new_cube(num)
-        inputs, kw = self._model_inputs(num)
-        d = self.space.n_cols
-        with record_function("suggest.draws"):
-            draws = sample_suggest_draws(
-                self._generator, q=kw["q"], n_candidates=self.n_candidates, d_free=d,
-                d=d + 1, acq=self.acq, local_frac=self.local_frac,
-                trust_region=self.trust_region, tr_perturb_dims=self.tr_perturb_dims,
-                device=self.device,
-            )
-        rows, state = dispatch_suggest_step(num, draws, *inputs, **kw)
+        rows, state = run_fused_plan(self._gp_plan(num))
         self._gp_state = state
-        return rows[:num]
+        return rows
 
     # --- health --------------------------------------------------------------
     def health_record(self):

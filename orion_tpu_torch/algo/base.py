@@ -5,11 +5,18 @@ Algorithms speak **flat unit-cube arrays**: ``suggest`` produces a
 decodes it to structured params with the Space's host codec; ``observe``
 receives the encoded rows plus an objective vector.
 
-The reference threads a JAX PRNGKey through its state.  Here each instance
-owns a ``torch.Generator`` on its device; ``state_dict`` carries the
-generator's state, so a restored instance continues the same stream.  The
-two packages' streams differ, and their checkpoints' RNG fields cannot be
-exchanged (``orion_tpu_torch.convert`` maps the rest across).
+The reference threads a JAX PRNGKey through its state and derives each
+purpose's draws from it by ``split`` and ``fold_in``.  Here each instance
+owns two ``torch.Generator`` streams on its device, both seeded from its
+seed: :attr:`BaseAlgorithm.generator` for the random rounds and the
+algorithms' own draws, and :attr:`BaseAlgorithm.model_generator` for the
+model rounds of the GP algorithms (their candidate pools and acquisition
+draws).  Without the split, a fresh instance at the same seed would draw its
+first GP candidates from the very numbers its random round was made of, and
+propose the points it had already observed.  ``state_dict`` carries both
+streams' states, so a restored instance continues them.  The two packages'
+streams differ, and their checkpoints' RNG fields cannot be exchanged
+(``orion_tpu_torch.convert`` maps the rest across).
 """
 
 import copy
@@ -52,6 +59,13 @@ def _effective_share(cls):
     out = (frozenset(ref), frozenset(dicts))
     cls.__effective_share__ = out
     return out
+
+
+def model_seed(seed):
+    """The model stream's seed for an instance seeded with ``seed``: derived
+    from it by a hash, as the reference folds a purpose into a key."""
+    state = np.random.SeedSequence([int(seed) % 2**63, 1]).generate_state(1, np.uint64)
+    return int(state[0] % 2**63)
 
 
 def _copy_generator(gen):
@@ -112,23 +126,33 @@ class BaseAlgorithm:
         self._params = dict(params)
         self._seed = seed
         self._generator = torch.Generator(device=self.device)
+        self._model_generator = torch.Generator(device=self.device)
         if seed is None:
             # Each unseeded instance gets its own stream: concurrent workers
             # sharing a fixed default seed would all suggest the same points.
             seed = int.from_bytes(os.urandom(4), "little")
-        self._generator.manual_seed(int(seed))
+        self._seed_streams(seed)
         self._n_observed = 0
 
     # --- RNG ---------------------------------------------------------------
-    def seed_rng(self, seed):
-        """Reset the algorithm's random stream."""
-        self._seed = seed
+    def _seed_streams(self, seed):
         self._generator.manual_seed(int(seed))
+        self._model_generator.manual_seed(model_seed(seed))
+
+    def seed_rng(self, seed):
+        """Reset the algorithm's random streams."""
+        self._seed = seed
+        self._seed_streams(seed)
 
     @property
     def generator(self):
-        """The instance's ``torch.Generator`` (on :attr:`device`)."""
+        """The random rounds' ``torch.Generator`` (on :attr:`device`)."""
         return self._generator
+
+    @property
+    def model_generator(self):
+        """The model rounds' ``torch.Generator`` (on :attr:`device`)."""
+        return self._model_generator
 
     # --- state -------------------------------------------------------------
     def state_dict(self):
@@ -136,17 +160,21 @@ class BaseAlgorithm:
         resume identically, the generator's state included."""
         return {
             "rng_state": self._generator.get_state().tolist(),
+            "model_rng_state": self._model_generator.get_state().tolist(),
             "n_observed": self._n_observed,
         }
 
     def set_state(self, state):
         """Restore :meth:`state_dict` output.  A state without
-        ``rng_state`` (one converted from ``orion_tpu``) reseeds the
-        generator from its ``seed``."""
+        ``rng_state`` (one converted from ``orion_tpu``) reseeds both
+        streams from its ``seed``."""
         if "rng_state" in state:
             self._generator.set_state(torch.tensor(state["rng_state"], dtype=torch.uint8))
+            if "model_rng_state" in state:
+                self._model_generator.set_state(
+                    torch.tensor(state["model_rng_state"], dtype=torch.uint8))
         else:
-            self._generator.manual_seed(int(state["seed"]))
+            self._seed_streams(state["seed"])
         self._n_observed = state["n_observed"]
 
     # --- core contract -----------------------------------------------------
@@ -324,6 +352,12 @@ def create_algo(space, config=None, seed=None, device=None):
     Unknown names raise with the available choices listed.
     """
     _import_builtins()
+    # Every instantiation path funnels through here, as in the reference:
+    # settle the kernel build directory (ORION_TPU_JIT_CACHE) before the
+    # first build.
+    from orion_tpu_torch.utils.jit_cache import enable_persistent_compilation_cache
+
+    enable_persistent_compilation_cache()
     config = config or "random"
     if isinstance(config, str):
         name, kwargs = config, {}

@@ -19,11 +19,19 @@ both sides; the next append on either side first copies the buffers, so
 the other side's rows survive.  An algorithm that is never cloned appends
 in place (``copy_`` into a slice) on every observe.
 
+Memory accounting: every instance built by ``__init__`` (clones are not:
+they share their source's buffers) sits in a weak registry that
+:func:`history_memory_stats` reads for the device-memory sampler
+(``orion_tpu_torch.devmem``).
+
 Telemetry: each device append counts ``history.appends.donated`` when it
 wrote into the resident buffers and ``history.appends.copied`` when it
 rebuilt them first (growth or copy-on-write) — the reference's names for
 an append that aliased its donated buffers or paid an O(capacity) copy.
 """
+
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -37,6 +45,40 @@ def _next_pow2(n, floor=64):
     while out < n:
         out *= 2
     return out
+
+
+# Live-instance registries (weak: registration never extends a history's
+# lifetime).  Clones bypass __init__ and are not registered, so buffers
+# shared with a clone are counted once.
+_registry_lock = threading.Lock()
+_device_histories = weakref.WeakSet()
+_host_histories = weakref.WeakSet()
+
+
+def history_memory_stats():
+    """Resident observation-history bytes of every live (non-clone)
+    history: ``device_buckets`` maps pow-2 capacity -> total device bytes
+    at that bucket, ``device_bytes``/``host_bytes`` the totals,
+    ``device_count`` live :class:`DeviceHistory` instances."""
+    with _registry_lock:
+        device = list(_device_histories)
+        host = list(_host_histories)
+    buckets = {}
+    device_bytes = 0
+    for hist in device:
+        if not hist.cap or hist._x is None:
+            continue
+        nbytes = sum(buf.numel() * buf.element_size()
+                     for buf in (hist._x, hist._y, hist._mask))
+        buckets[hist.cap] = buckets.get(hist.cap, 0) + nbytes
+        device_bytes += nbytes
+    host_bytes = sum(int(h._x.nbytes) + int(h._y.nbytes) for h in host)
+    return {
+        "device_buckets": buckets,
+        "device_bytes": device_bytes,
+        "host_bytes": host_bytes,
+        "device_count": len(device),
+    }
 
 
 def _local_subset(x, y, mask, center, m, m_pad, dist_cols):
@@ -77,6 +119,8 @@ class DeviceHistory:
         # True while the buffers may be visible to another DeviceHistory
         # (a clone): the next append must copy them first.
         self._cow = False
+        with _registry_lock:
+            _device_histories.add(self)
 
     @classmethod
     def from_host(cls, x, y, floor=64, device=None):
@@ -172,6 +216,8 @@ class HostHistory:
         self._cow = False
         self.best_idx = -1
         self.best_y = np.inf
+        with _registry_lock:
+            _host_histories.add(self)
 
     @classmethod
     def from_host(cls, x, y, floor=64):

@@ -9,27 +9,37 @@ health vector.  Everything stays on the algorithm's device; the only host
 copies are the (q, d) rows and, when asked for, the health vector.
 
 The reference compiles the round into one jitted function with threefry
-keys.  Here the round runs eagerly and is a function of its random draws
+keys.  Here the round is a function of its random draws
 (:class:`SuggestDraws`): :func:`sample_suggest_draws` draws them from the
-instance's ``torch.Generator``, and the parity tests replay the reference's
-key schedule through ``jax.random`` and pass the same numbers to both.
+instance's model stream (``BaseAlgorithm.model_generator``, apart from the
+random rounds' stream, as the reference folds a purpose into each key), and
+the parity tests replay the reference's key schedule through ``jax.random``
+and pass the same numbers to both.
+
+Every GP round of ``tpu_bo``, ``turbo`` and ``asha_bo`` goes through ONE
+dispatch path: :func:`make_fused_plan` folds the round's dynamics (warm
+against cold fit steps, the pow-2 q bucket) into a :class:`FusedPlan`, and
+:func:`run_fused_plan` runs it through
+:data:`~orion_tpu_torch.algo.step_graphs.STEP_GRAPHS`, the counterpart of
+the reference's jit cache: on CUDA the round is captured once per plan
+signature as a CUDA graph and replayed after that.  With telemetry on, a
+replay books one ``suggest_step.dispatch`` span (``{"q", "n"}`` args: the
+host's cost of issuing the round), a miss a ``suggest_step.capture`` span,
+the ``cuda_graph.recaptures`` counter and the compiler plane's attributed
+recapture (:mod:`orion_tpu_torch.compiler_plane`).
 
 Each stage of a round runs inside a ``torch.profiler.record_function`` span
 named ``suggest.<stage>`` (draws, fit_gp, candidates, polish, acquire,
-ei_rank, select), so a profiled round reads as its own breakdown.
+ei_rank, select).  A replayed graph runs no Python, so only an eager round
+(a signature's first, or :func:`_suggest_step` called directly) shows them.
 
-Telemetry (:func:`dispatch_suggest_step`, also ``asha_bo``'s entry): with
-the registry on, each round books one ``suggest_step.dispatch`` span with
-``{"q", "n"}`` args — the host's cost of dispatching the step, as the
-reference's ``jax.suggest_step.dispatch``.  Eager PyTorch has no trace
-cache, so there is no ``jax.suggest_step.compile`` span and no
-``jax.retraces`` counter; their counterpart comes with the compiler plane
-(ROADMAP queue A item 6).
+The bucket prewarmer (``prewarm``, ``prewarm_fill``;
+:func:`maybe_prewarm_fused_step`) captures the next pow-2 history bucket's
+signature on a background thread before the history gets there.
 
-Not ported yet: the fused-plan and serve-coalescing machinery (``FusedPlan``,
-``make_fused_plan``, ``run_fused_plan``, ``PlanPrepToken``), the jit prewarmer
-(``prewarm`` is accepted and has no effect) and the device mesh
-(``use_mesh=True`` raises ``NotImplementedError``).
+Not ported: the serve gateway's plan-prep caches (``PlanPrepToken``,
+``_PLAN_PREP_CACHE``; ROADMAP queue A item 8) and the device mesh
+(``use_mesh=True`` raises ``NotImplementedError``; item 10).
 """
 
 import time
@@ -56,7 +66,18 @@ from orion_tpu_torch.algo.gp.gp import (
     posterior_norm,
 )
 from orion_tpu_torch.algo.history import DeviceHistory, HostHistory, _next_pow2
+from orion_tpu_torch.algo.prewarm import (
+    DEFAULT_PREWARM_FILL,
+    BucketPrewarmer,
+    plan_fused_step_bucket,
+)
 from orion_tpu_torch.algo.sampling import clamp_objectives, reflect_unit
+from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+from orion_tpu_torch.compiler_plane import (
+    COMPILE_REGISTRY,
+    fields_from_plan_signature,
+    signature_fields,
+)
 from orion_tpu_torch.telemetry import TELEMETRY
 
 #: Random Fourier features of the Thompson acquisition.
@@ -397,7 +418,9 @@ def _suggest_step(draws, x, y, mask, best_x, warm_hypers, tr_length=None, *, q,
             # minimizer, unless it is already observed (then re-suggesting it
             # would loop on duplicate trials).
             exploit_idx = torch.argmin(mean)
-            exploit_cand = free_candidates[exploit_idx]
+            # index_select, not free_candidates[exploit_idx]: indexing by a
+            # 0-d tensor reads it to the host, a sync no capture allows.
+            exploit_cand = torch.index_select(free_candidates, 0, exploit_idx[None])[0]
             d2_obs = torch.sum((x[:, :d_free] - exploit_cand[None, :]) ** 2, dim=1)
             already_observed = torch.any((d2_obs < 1e-12) & (mask > 0))
             injected = torch.where(already_observed, idx[0], exploit_idx)
@@ -424,21 +447,212 @@ def _suggest_step(draws, x, y, mask, best_x, warm_hypers, tr_length=None, *, q,
         return free_candidates[final_idx], state
 
 
-def dispatch_suggest_step(num, draws, x, *args, **kwargs):
-    """:func:`_suggest_step` for ``num`` requested rows, booked as one
-    ``suggest_step.dispatch`` span (``{"q": num, "n": rows of x}``) when
-    telemetry is on.  No device sync inside the span: like the reference's
-    dispatch span it measures the host's cost of issuing the step, and a
-    sync would change the round it observes."""
+class FusedPlan(NamedTuple):
+    """One prepared (not yet run) suggest round.
+
+    ``arrays`` holds :func:`_suggest_step`'s tensor inputs in call order
+    (draws, x, y, mask, best_x, warm hypers, tr_length); ``statics`` its
+    keyword arguments, with warm against cold fit steps and the pow-2 q
+    bucket folded in.  ``signature`` (the fit buffer's shape and every
+    static, stringified) keys the captured graph: two plans with equal
+    signatures replay the same graph."""
+
+    signature: tuple
+    arrays: tuple
+    statics: dict
+    num: int
+
+
+def plan_statics(num_or_q, warm, *, n_candidates, kernel, acq, fit_steps,
+                 refit_steps=None, local_frac, local_sigma, beta, trust_region=False,
+                 tr_perturb_dims=20, y_transform="none", fixed_tail_cols=0):
+    """The static keyword arguments of a round for ``num_or_q`` rows: the
+    q bucket, and ``refit_steps`` in place of ``fit_steps`` on a warm refit
+    when it is set.  :func:`make_fused_plan` and the prewarmer build their
+    signatures from this one function."""
+    steps = refit_steps if warm and refit_steps is not None else fit_steps
+    return dict(
+        q=_next_pow2(num_or_q, floor=8), n_candidates=n_candidates, kernel=kernel,
+        acq=acq, fit_steps=steps, local_frac=local_frac, local_sigma=local_sigma,
+        beta=beta, trust_region=trust_region, tr_perturb_dims=tr_perturb_dims,
+        y_transform=y_transform, fixed_tail_cols=fixed_tail_cols,
+    )
+
+
+def plan_signature(shape, statics):
+    """``(tuple(shape), sorted (key, str(value)) statics)``: the reference's
+    format, so ``compiler_plane.fields_from_plan_signature`` reads it."""
+    return (tuple(shape), tuple(sorted((k, str(v)) for k, v in statics.items())))
+
+
+def make_fused_plan(generator, x, y, mask, best_x, warm_state, num, *, tr_length=None,
+                    **step_kw):
+    """This round as a :class:`FusedPlan`: its draws from ``generator`` (the
+    model stream), the warm hypers (or the cold start), tr_length as a
+    device scalar, and the statics of :func:`plan_statics`.  ``step_kw`` is
+    the algorithm's ``_step_kw()`` without ``tr_length``."""
+    statics = plan_statics(num, warm_state is not None, **step_kw)
+    width = x.shape[1]
+    device = x.device
+    with record_function("suggest.draws"):
+        draws = sample_suggest_draws(
+            generator, q=statics["q"], n_candidates=statics["n_candidates"],
+            d_free=width - statics["fixed_tail_cols"], d=width, acq=statics["acq"],
+            local_frac=statics["local_frac"], trust_region=statics["trust_region"],
+            tr_perturb_dims=statics["tr_perturb_dims"], device=device,
+        )
+    hypers = init_hypers(width, device=device) if warm_state is None else warm_state.hypers
+    # torch.full, not torch.tensor: a fill on the device, no host copy.
+    tr = torch.full((), 1.0 if tr_length is None else float(tr_length), dtype=torch.float32,
+                    device=device)
+    arrays = (draws, x, y, mask, best_x, hypers, tr)
+    return FusedPlan(plan_signature(x.shape, statics), arrays, statics, int(num))
+
+
+def flop_analysis_fn(arrays, statics):
+    """Zero-argument FLOP count of one eager round at this plan's shapes,
+    for :meth:`CompileRegistry.analyze_all`.  Keeps shapes only, never the
+    arrays (an analysis entry must not pin device buffers)."""
+    from torch.utils import _pytree as pytree
+
+    leaves, spec = pytree.tree_flatten(arrays)
+    specs = [(t.shape, t.dtype, t.device) if torch.is_tensor(t) else t for t in leaves]
+    statics = dict(statics)
+
+    def analyze():
+        from torch.utils.flop_counter import FlopCounterMode
+
+        dummies = [torch.zeros(s[0], dtype=s[1], device=s[2]) if isinstance(s, tuple) else s
+                   for s in specs]
+        counter = FlopCounterMode(display=False)
+        with counter:
+            _suggest_step(*pytree.tree_unflatten(dummies, spec), **statics)
+        return {"flops": float(counter.get_total_flops())}
+
+    return analyze
+
+
+def _entry_stats(entry):
+    """What the compiler plane keeps of a captured entry."""
+    if entry.graph is None:
+        return {}
+    return {
+        "instantiate_ms": entry.instantiate_ms,
+        "graph_nodes": entry.graph_nodes,
+        "pool_bytes": entry.pool_bytes,
+        "hbm_bytes": entry.pool_bytes + entry.static_bytes,
+    }
+
+
+def run_fused_plan(plan):
+    """Run ONE :class:`FusedPlan` through the step graphs, with the
+    reference's telemetry bracket: a ``suggest_step.dispatch`` span on a
+    replay; on a miss (this signature had no entry yet) a
+    ``suggest_step.capture`` span, the ``cuda_graph.recaptures`` counter
+    and the compiler plane's attributed recapture.  Returns
+    ``(rows[:num], state)``."""
+    num = plan.num
     t0 = time.perf_counter() if TELEMETRY.enabled else None
-    out = _suggest_step(draws, x, *args, **kwargs)
+    (rows, state), entry, missed = STEP_GRAPHS.run(
+        _suggest_step, plan.signature, plan.arrays, plan.statics)
     if t0 is not None:
         TELEMETRY.record_span(
-            "suggest_step.dispatch",
+            "suggest_step.capture" if missed else "suggest_step.dispatch",
             start=t0,
-            args={"q": int(num), "n": int(x.shape[0])},
+            args={"q": int(num), "n": int(plan.arrays[1].shape[0])},
         )
-    return out
+        if missed:
+            TELEMETRY.count("cuda_graph.recaptures")
+            COMPILE_REGISTRY.record_retrace(
+                "fused_plan",
+                fields_from_plan_signature(plan.signature),
+                seconds=time.perf_counter() - t0,
+                analysis_fn=flop_analysis_fn(plan.arrays, plan.statics),
+                stats=_entry_stats(entry),
+            )
+    # Dedup puts the unique draws first, so the first `num` rows are the
+    # ones an un-padded round would have returned.
+    return rows[:num], state
+
+
+# --- the bucket prewarmer's hooks ---------------------------------------------
+
+
+def maybe_prewarm_fused_step(algo, batch=0):
+    """Observe-side prewarm trigger shared by ``tpu_bo`` and ``asha_bo``:
+    when the history nears the next pow-2 bucket, capture that bucket's
+    round on the prewarmer's thread, so the crossing replays a graph
+    instead of paying a synchronous capture.  Needs one prior suggest to
+    know the q bucket.
+
+    Past ``tr_local_m`` the trust region's local GP pins the fit shape:
+    nothing is left to warm (the reference also warms its on-device subset
+    gather there, a jitted function of its own; the port's gather is
+    eager)."""
+    if not algo.prewarm or algo._last_q_bucket is None:
+        return
+    count = algo._host.count
+    if count < algo.n_init:
+        return
+    target_m = plan_fused_step_bucket(
+        count, floor=algo._hist.floor, fill=algo.prewarm_fill, batch=batch,
+        trust_region=algo.trust_region, tr_local_m=algo.tr_local_m,
+    )
+    if target_m is not None:
+        start_bucket_prewarm(
+            algo._prewarmer, target_m, algo._hist.n_cols, algo._last_q_bucket,
+            algo._step_kw(), warm_refit=algo._gp_state is not None, device=algo.device,
+        )
+
+
+def start_bucket_prewarm(prewarmer, target_m, width, q_bucket, step_kw, *, device,
+                         warm_refit=False):
+    """Hand the prewarmer a capture of the round at the ``(target_m,
+    width)`` bucket with the EXACT statics a real round there will have
+    (:func:`plan_statics`; ``warm_refit`` bakes in ``refit_steps``), keyed
+    by them, so each signature is captured at most once per prewarmer."""
+    kw = dict(step_kw)
+    kw.pop("tr_length", None)
+    statics = plan_statics(q_bucket, warm_refit, **kw)
+    signature = plan_signature((target_m, width), statics)
+
+    def capture_and_record():
+        t0 = time.perf_counter()
+        entry = prewarm_suggest_step(target_m, width, statics, signature, device=device)
+        if TELEMETRY.enabled:
+            COMPILE_REGISTRY.record_prewarm(
+                "fused_plan", signature_fields((target_m, width), statics),
+                seconds=time.perf_counter() - t0,
+                stats=_entry_stats(entry) if entry is not None else None,
+            )
+
+    return prewarmer.maybe_start(signature, capture_and_record)
+
+
+def prewarm_suggest_step(m, width, statics, signature, *, device):
+    """Capture the round for an ``(m, width)`` fit buffer from dummies:
+    zeros for the history (every row masked out), the cold hypers and
+    draws of a throwaway generator.  Deliberately not through
+    :func:`run_fused_plan`: a prewarm never books a
+    ``cuda_graph.recaptures`` sample (that counter reports the synchronous
+    captures a suggest paid).  Returns the new entry, or None when the
+    signature was already captured."""
+    device = torch.device(device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    draws = sample_suggest_draws(
+        generator, q=statics["q"], n_candidates=statics["n_candidates"],
+        d_free=width - statics["fixed_tail_cols"], d=width, acq=statics["acq"],
+        local_frac=statics["local_frac"], trust_region=statics["trust_region"],
+        tr_perturb_dims=statics["tr_perturb_dims"], device=device,
+    )
+    zeros = torch.zeros((m, width), dtype=torch.float32, device=device)
+    arrays = (
+        draws, zeros, zeros[:, 0].clone(), zeros[:, 0].clone(),
+        torch.zeros((width - statics["fixed_tail_cols"],), dtype=torch.float32, device=device),
+        init_hypers(width, device=device),
+        torch.full((), 1.0, dtype=torch.float32, device=device),
+    )
+    return STEP_GRAPHS.prewarm(_suggest_step, signature, arrays, statics)
 
 
 @algo_registry.register("tpu_bo")
@@ -447,10 +661,11 @@ class TPUBO(BaseAlgorithm):
     keyword arguments (see ``orion_tpu.algo.tpu_bo.TPUBO``) plus ``device``
     (None means ``cuda``; raises where no card is present).
 
-    ``prewarm``/``prewarm_fill`` configure a jit prewarmer the port does
-    not need (it runs eagerly) and are accepted and ignored; ``n_devices``
-    and ``use_mesh`` belong to the multi-device mesh, which is not ported
-    (``use_mesh=True`` raises)."""
+    ``prewarm`` captures the next pow-2 history bucket's round on a
+    background thread before the history crosses into it, once the current
+    bucket is ``prewarm_fill`` full (or one more batch of the size just
+    observed would cross it); ``n_devices`` and ``use_mesh`` belong to the
+    multi-device mesh, which is not ported (``use_mesh=True`` raises)."""
 
     supports_async_suggest = True
 
@@ -480,7 +695,7 @@ class TPUBO(BaseAlgorithm):
         tr_update_every=8,
         speculative_suggest=False,
         prewarm=True,
-        prewarm_fill=0.75,
+        prewarm_fill=DEFAULT_PREWARM_FILL,
         n_devices=None,
         use_mesh=False,
         device=None,
@@ -536,10 +751,16 @@ class TPUBO(BaseAlgorithm):
         self.tr_perturb_dims = tr_perturb_dims
         self.tr_update_every = tr_update_every
         self.speculation_safe = bool(speculative_suggest)
+        self.prewarm = bool(prewarm)
+        self.prewarm_fill = float(prewarm_fill)
         d = space.n_cols
         self._host = HostHistory(d)
         self._hist = DeviceHistory(d, device=self.device)
         self._gp_state = None
+        # Captures the next bucket's round before the history gets there;
+        # the q bucket of the last GP round says which round to capture.
+        self._prewarmer = BucketPrewarmer()
+        self._last_q_bucket = None
         self._tr_length = tr_length_init
         self._tr_succ = 0
         self._tr_fail = 0
@@ -548,8 +769,10 @@ class TPUBO(BaseAlgorithm):
         self._tr_center = None
 
     # The fitted GP state is immutable-by-rebinding; `_hist` and `_host`
-    # implement copy-on-write in their own __deepcopy__.
-    _share_by_ref = ("space", "_gp_state")
+    # implement copy-on-write in their own __deepcopy__.  The prewarmer's
+    # threads and lock cannot be copied, and the graphs it captures are
+    # process-wide: one warm covers every clone.
+    _share_by_ref = ("space", "_gp_state", "_prewarmer")
 
     @property
     def _x(self):
@@ -570,6 +793,7 @@ class TPUBO(BaseAlgorithm):
         y32 = np.asarray(objectives, dtype=np.float32)
         self._host.append(rows32, y32)
         self._hist.append(rows32, y32)
+        self._maybe_prewarm(batch=y32.shape[0])
         # Trust-region bookkeeping counts MODEL rounds only.
         if self.trust_region and prev_n >= self.n_init:
             (self._tr_length, self._tr_succ, self._tr_fail,
@@ -607,20 +831,30 @@ class TPUBO(BaseAlgorithm):
             n_candidates=self.n_candidates,
             kernel=self.kernel,
             acq=self.acq,
+            fit_steps=self.fit_steps,
+            refit_steps=self.refit_steps,
             local_frac=self.local_frac,
             local_sigma=self.local_sigma,
             beta=self.beta,
             trust_region=self.trust_region,
+            tr_length=self._tr_length,
             tr_perturb_dims=self.tr_perturb_dims,
             y_transform=self.y_transform,
         )
 
-    def _suggest_cube(self, num):
+    def _maybe_prewarm(self, batch=0):
+        maybe_prewarm_fused_step(self, batch=batch)
+
+    def fused_step_plan(self, num):
+        """This round's :class:`FusedPlan`, or None while the random-init
+        phase runs.  Consuming: it draws from the model stream and stamps
+        the q bucket as a suggest does, so a caller holding a plan must run
+        it (:func:`run_fused_plan`) and hand the state back through
+        :meth:`consume_fused_step`, as ``_suggest_cube`` does."""
         n = self._host.count
         if n < self.n_init:
-            return torch.rand((num, self.space.n_cols), generator=self._generator,
-                              device=self.device)
-        q = _next_pow2(num, floor=8)
+            return None
+        self._last_q_bucket = _next_pow2(num, floor=8)
         center_idx = (
             self._tr_center
             if self._tr_center is not None and self._tr_center < n
@@ -633,28 +867,26 @@ class TPUBO(BaseAlgorithm):
             x_dev, y_dev, mask_dev, _ = self._hist.local_view(best_x, self.tr_local_m)
         else:
             x_dev, y_dev, mask_dev, _ = self._hist.fit_view()
-        warm = self._gp_state
-        if warm is None:
-            hypers = init_hypers(x_dev.shape[1], device=self.device)
-            steps = self.fit_steps
-        else:
-            hypers = warm.hypers
-            steps = self.refit_steps if self.refit_steps is not None else self.fit_steps
         step_kw = self._step_kw()
-        with record_function("suggest.draws"):
-            draws = sample_suggest_draws(
-                self._generator, q=q, n_candidates=self.n_candidates, d_free=x_dev.shape[1],
-                d=x_dev.shape[1], acq=self.acq, local_frac=self.local_frac,
-                trust_region=self.trust_region, tr_perturb_dims=self.tr_perturb_dims,
-                device=self.device,
-            )
-        tr = torch.tensor(self._tr_length, dtype=torch.float32, device=self.device)
-        rows, state = dispatch_suggest_step(
-            num, draws, x_dev, y_dev, mask_dev, best_x, hypers, tr, q=q, fit_steps=steps,
-            **step_kw,
+        tr_length = step_kw.pop("tr_length")
+        return make_fused_plan(
+            self.model_generator, x_dev, y_dev, mask_dev, best_x, self._gp_state, num,
+            tr_length=tr_length, **step_kw,
         )
+
+    def consume_fused_step(self, state):
+        """Take the GPState a plan's round produced: the next round's warm
+        start and the packed health."""
         self._gp_state = state
-        return rows[:num]
+
+    def _suggest_cube(self, num):
+        plan = self.fused_step_plan(num)
+        if plan is None:
+            return torch.rand((num, self.space.n_cols), generator=self._generator,
+                              device=self.device)
+        rows, state = run_fused_plan(plan)
+        self.consume_fused_step(state)
+        return rows
 
     # --- health -------------------------------------------------------------
     def health_record(self):

@@ -134,23 +134,12 @@ def _run_worker(experiment, parser, args, device):
     if not args.profile:
         run()
         return
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from orion_tpu_torch.compiler_plane import profiler_capture
 
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(args.profile, exist_ok=True)
-    path = os.path.join(args.profile, f"trace-{os.getpid()}.json")
-    prof = profile(activities=activities)
-    try:
-        # The span marks the loop's extent in the trace: the wall time the
-        # device's busy time is read against.
-        with prof, record_function("hunt.workon"):
-            run()
-    finally:
-        # A trace of a failed loop is the one most worth reading.
-        prof.export_chrome_trace(path)
-        print(f"profile: wrote {path}", file=sys.stderr)
+    # The span marks the loop's extent in the trace: the wall time the
+    # device's busy time is read against.  `profile --capture` shares it.
+    with profiler_capture(args.profile, device, span="hunt.workon"):
+        run()
 
 
 def main(args):

@@ -3,11 +3,12 @@
 
 Capability parity: reference `src/orion/core/cli/info.py` — sections for
 commandline, config, algorithm, space, metadata, refers (EVC lineage), and
-stats, plus the producer's timings and the merged telemetry and health
-snapshots.  The sections that read parts the port does not have yet print
-one line naming their ROADMAP queue A item instead of their body: the
-compiler plane and the host/device budget (item 6), the doctor (item 9),
-the serve fleet (item 8).
+stats, plus the producer's timings, the merged telemetry and health
+snapshots with each snapshot's host/device ratio against the host budget,
+and the compiler plane's digest (CUDA-graph captures).  The sections that
+read parts the port does not have yet print one line naming their ROADMAP
+queue A item instead of their body: the doctor (item 9), the serve fleet
+(item 8).
 """
 
 import time
@@ -25,13 +26,6 @@ from orion_tpu_torch.core.producer import Producer
 STALE_AFTER = 3.0 * Producer.METRICS_FLUSH_INTERVAL
 
 #: One line each for the sections whose parts are not ported yet.
-COMPILER_NOT_PORTED = (
-    "not ported yet: the compiler plane and `profile` are ROADMAP queue A item 6"
-)
-RATIO_NOT_PORTED = (
-    "host/device ratio: not ported yet (the host budget and `top` are "
-    "ROADMAP queue A item 6)"
-)
 DOCTOR_NOT_PORTED = "not ported yet: the doctor is ROADMAP queue A item 9"
 SERVE_NOT_PORTED = "serve: not ported yet (the serve fleet is ROADMAP queue A item 8)"
 
@@ -121,8 +115,10 @@ def format_info(experiment, per_worker=False):
         out.append(_section("Telemetry"))
         out.extend(tele)
 
-    out.append(_section("Compiler"))
-    out.append(COMPILER_NOT_PORTED)
+    compiler = _compiler_section(metrics_docs)
+    if compiler:
+        out.append(_section("Compiler"))
+        out.extend(compiler)
 
     health = _health_section(experiment, per_worker=per_worker, docs=health_docs)
     if health:
@@ -170,6 +166,42 @@ def _perf_section(experiment):
             f"p99 {pct(99) * 1e3:.1f}ms  max {durations[-1] * 1e3:.1f}ms"
         )
     return lines
+
+
+def _compiler_section(docs):
+    """The compiler-plane digest (orion_tpu_torch.compiler_plane): CUDA-graph
+    captures and recapture-attribution coverage from the merged counters,
+    plus the memory line ``profile`` and ``top`` also render.  Empty unless
+    some worker recorded captures; guarded like the telemetry block."""
+    if not docs:
+        return []
+    try:
+        from orion_tpu_torch.cli.profile import hbm_line
+        from orion_tpu_torch.telemetry import merge_snapshots
+
+        merged = merge_snapshots(docs)
+        counters = merged.get("counters") or {}
+        gauges = merged.get("gauges") or {}
+        captures = counters.get("cuda_graph.captures")
+        if not captures:
+            return []
+        lines = [
+            f"captures: {int(captures)}  "
+            f"recaptures: {int(counters.get('cuda_graph.recaptures', 0))} "
+            f"({int(counters.get('cuda_graph.recaptures.attributed', 0))} attributed, "
+            f"{int(counters.get('cuda_graph.recaptures.prewarm_covered', 0))} "
+            "prewarm-covered)"
+        ]
+        ms_total = gauges.get("compiler.capture_ms_total")
+        if ms_total:
+            lines.append(f"capture time total: {float(ms_total):.1f}ms")
+        headroom = hbm_line(gauges)
+        if headroom:
+            lines.append(headroom)
+        lines.append("details: `orion-tpu-torch profile -n NAME`")
+        return lines
+    except Exception:
+        return []
 
 
 def _snapshot_lines(snapshot):
@@ -257,12 +289,19 @@ def _stale_after():
 
 
 def _ratio_line(histograms):
-    """The reference's ``host/device ratio`` line reads the round against
-    the device window and its host budget; the port has neither budget nor
-    device-window spans yet, so a snapshot holding histograms says so."""
-    if not histograms:
+    """``host/device ratio: 1.12 (budget 2.25x)`` from the round vs
+    device-window histogram means — the same per-worker number ``top``
+    shows in its ``h/d`` column, against the same
+    ``orion_tpu_torch.hostbudget`` bar."""
+    from orion_tpu_torch.cli.top import _host_device_ratio
+    from orion_tpu_torch.hostbudget import round_budget_factor
+
+    ratio = _host_device_ratio(histograms)
+    if ratio is None:
         return None
-    return RATIO_NOT_PORTED
+    budget = round_budget_factor()
+    marker = "  HOST-BUDGET BREACH" if ratio > budget else ""
+    return f"host/device ratio: {ratio:g} (budget {budget:g}x){marker}"
 
 
 def _flush_age(doc, now):

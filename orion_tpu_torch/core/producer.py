@@ -31,11 +31,12 @@ span per ring entry (dispatch to finalize or discard) and a
 ``flight.*`` spans) to storage every round and upserts the metrics
 snapshot at most every :attr:`Producer.METRICS_FLUSH_INTERVAL` seconds.
 
-Left out: the health record's ``mem_bytes`` stamp and the device-memory
-sampling before a snapshot (``sample_memory``), which come with the device
-plane (ROADMAP queue A item 6), and the serve-placement gauges
-(``_sample_serve_placement``, reference ``producer.py:350-374``), which
-come with ``serve`` (item 8).
+Before each metrics snapshot the device-memory sampler runs
+(``orion_tpu_torch.devmem.sample_memory``), and each health record carries
+the ``mem_bytes`` stamp of its gauge, as in the reference.  Left out: the
+serve-placement gauges (``_sample_serve_placement``, reference
+``producer.py:350-374``), which come with ``serve`` (ROADMAP queue A item
+8).
 """
 
 import copy
@@ -48,6 +49,7 @@ from collections import deque
 import numpy as np
 
 from orion_tpu_torch.core.trial import RESERVABLE_STATUSES, Result, Trial, TrialBatch
+from orion_tpu_torch.devmem import sample_memory
 from orion_tpu_torch.health import FLIGHT, flight_events_as_spans
 from orion_tpu_torch.storage.retry import RetryPolicy
 from orion_tpu_torch.telemetry import TELEMETRY, current_trace_context
@@ -84,14 +86,15 @@ def _observe_accepts_cube(algo):
 
 
 def _advance_rng(real, naive):
-    """Move ``real``'s random stream to where ``naive``'s stands, and
+    """Move ``real``'s random streams to where ``naive``'s stand, and
     nothing else of its state: the naive copy has observed lies, which must
-    never reach the real algorithm.  The generator's state is copied (a
+    never reach the real algorithm.  Each generator's state is copied (a
     host-side seed and offset, also for a ``cuda`` generator); the two
     instances keep their own generator objects."""
-    gen = getattr(naive, "generator", None)
-    if gen is not None:
-        real.generator.set_state(gen.get_state())
+    for name in ("generator", "model_generator"):
+        gen = getattr(naive, name, None)
+        if gen is not None:
+            getattr(real, name).set_state(gen.get_state())
 
 
 class Producer:
@@ -368,6 +371,10 @@ class Producer:
                     force_metrics
                     or now - self._last_metrics_flush >= self.METRICS_FLUSH_INTERVAL
                 ):
+                    # The device-memory and graph-cache gauges ride the same
+                    # gate (rate-limited again inside), so a snapshot never
+                    # ships stale memory numbers.
+                    sample_memory(force=force_metrics)
                     self.experiment.storage.record_metrics(
                         self.experiment, TELEMETRY.snapshot()
                     )
@@ -653,6 +660,12 @@ class Producer:
             record["round"] = self._round_index
             record["registered"] = int(registered)
             record["time"] = time.time()
+            # Device-memory stamp (orion_tpu_torch.devmem publishes the
+            # gauge, rate-limited): gauges are last-write-wins, so the
+            # health record is the only stored time series of it.
+            mem = TELEMETRY.gauge_value("memory.device_live_bytes")
+            if mem is not None:
+                record["mem_bytes"] = float(mem)
             return record
         except Exception:  # pragma: no cover - observability never breaks a run
             log.debug("could not build health record", exc_info=True)

@@ -29,10 +29,10 @@ Mapping (the registry's primitives are Prometheus-shaped on purpose):
 The metric names keep the reference's ``orion_tpu_`` prefix, so one
 scrape configuration reads either package's workers.
 
-Left out, each with the ROADMAP queue A item that brings it:
+Each scrape refreshes the device-memory gauges (``devmem.sample_memory``)
+and the compiler plane's (``COMPILE_REGISTRY.publish_gauges``), as in the
+reference.  Left out, with the ROADMAP queue A item that brings it:
 
-- a scrape's refresh of the device-memory and compiler-plane gauges
-  (item 6);
 - the doctor: ``doctor.findings.<RULE>`` gauges still export as one
   labelled family, but every rule's severity reads ``unknown`` (the
   reference's answer when its diagnosis package fails to import), and the
@@ -186,11 +186,21 @@ class _MetricsHandler(http.server.BaseHTTPRequestHandler):
 
     def do_GET(self):  # noqa: N802 - http.server contract
         if self.path.split("?", 1)[0] == "/metrics":
+            # Fresh device-memory gauges per scrape: the sampler is the
+            # low-frequency leg; a scrape IS the frequency source here.
+            from orion_tpu_torch.devmem import sample_memory
+
+            sample_memory(force=True)
             # Replication-lag gauges for any sharded router this process
             # holds (rate-limited internally; one tiny seq probe per node).
             from orion_tpu_torch.storage.shard import sample_replication_lag
 
             sample_replication_lag()
+            # Compiler-plane gauges from the recorded captures: publishing
+            # never captures, so it is scrape-safe.
+            from orion_tpu_torch.compiler_plane import COMPILE_REGISTRY
+
+            COMPILE_REGISTRY.publish_gauges()
             body = render_exposition(self.server.registry.snapshot()).encode()
             content_type = "text/plain; version=0.0.4; charset=utf-8"
         elif self.path.split("?", 1)[0] == "/healthz":

@@ -27,10 +27,19 @@ on the host; the kernel refuses a plan that is not its own rule's.
 
 A tensor on the CPU goes to :func:`fused_gram_reference`, the plain PyTorch
 version.  A CUDA tensor launches the kernel or raises: there is no fallback.
+
+Launch counts under CUDA graphs: a call made while its stream is being
+captured launches nothing and is not counted.  Inside
+:func:`recorded_launches` (the step graphs' captures,
+:mod:`orion_tpu_torch.algo.step_graphs`) it records its shape; each replay
+of that graph launches the kernel again, and :func:`replayed_launches`
+counts it then, under the same profiler range.  A graph captured elsewhere
+(a timing loop) counts nothing.
 """
 
 import contextlib
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -81,6 +90,9 @@ def _launch_plan(m, n, d, out_aligned):
         rows, cols = _CHUNKED_TILE
         smem = 4 * _CHUNK * (rows + cols + 2 * _ROW_PAD)
     return LaunchPlan(resident, n % 4 == 0 and out_aligned, rows, cols, smem)
+
+
+_PLAN_RULE = _launch_plan
 
 
 def _epilogue(kind, r2, amp):
@@ -159,10 +171,16 @@ def fused_gram(xa, xb, inv_lengthscales, amplitude, *, kind="matern52"):
     out = torch.empty((m, n), dtype=torch.float32, device=xa.device)
     if m == 0 or n == 0:
         return out
-    plan = _launch_plan(m, n, d, out.data_ptr() % 16 == 0)
+    aligned = out.data_ptr() % 16 == 0
+    capturing = torch.cuda.is_current_stream_capturing()
+    # A capture records a launch and runs none: it takes the rule without
+    # going through the module's ``_launch_plan``, which sees real launches,
+    # and opens no range (each replay opens its own).
+    plan = (_PLAN_RULE if capturing else _launch_plan)(m, n, d, aligned)
     lib = _lib()
     scope = (torch.profiler.record_function(f"{PROFILE_RANGE} {m}x{n}x{d}")
-             if torch._C._autograd._profiler_enabled() else contextlib.nullcontext())
+             if torch._C._autograd._profiler_enabled() and not capturing
+             else contextlib.nullcontext())
     with scope, torch.cuda.device(xa.device):
         rc = lib.orion_fused_gram_f32(
             xa.data_ptr(), xb.data_ptr(), ils.data_ptr(), amp.data_ptr(), out.data_ptr(),
@@ -172,9 +190,44 @@ def fused_gram(xa, xb, inv_lengthscales, amplitude, *, kind="matern52"):
         raise RuntimeError(
             f"fused_gram launch failed: {lib.orion_cuda_error_string(rc).decode()} ({rc})"
         )
-    fused_gram.launches += 1
+    if not capturing:
+        fused_gram.launches += 1
+    elif getattr(_capturing, "launches", None) is not None:
+        _capturing.launches.append((m, n, d, aligned))
     return out
 
 
 #: Kernel launches since the last reset (a plain integer; callers zero it).
 fused_gram.launches = 0
+
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Collect ``(m, n, d, aligned)`` of every call this thread makes into a
+    capturing stream (a launch recorded in a graph, not run)."""
+    previous = getattr(_capturing, "launches", None)
+    _capturing.launches = launches = []
+    try:
+        yield launches
+    finally:
+        _capturing.launches = previous
+
+
+@contextlib.contextmanager
+def replayed_launches(launches):
+    """Around one replay of a graph whose capture recorded ``launches``:
+    under ``torch.profiler`` each launch gets its ``fused_gram MxNxD`` range,
+    as an eager launch does; after the replay each counts one launch and
+    goes through :func:`_launch_plan` again, as an eager launch does, so a
+    hook on the plan sees every launch."""
+    with contextlib.ExitStack() as scopes:
+        if launches and torch._C._autograd._profiler_enabled():
+            for m, n, d, _aligned in launches:
+                scopes.enter_context(
+                    torch.profiler.record_function(f"{PROFILE_RANGE} {m}x{n}x{d}"))
+        yield
+    for m, n, d, aligned in launches:
+        _launch_plan(m, n, d, aligned)
+        fused_gram.launches += 1

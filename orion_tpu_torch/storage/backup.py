@@ -142,7 +142,8 @@ def restore_topology(db, src_dir, require_empty=True, retry=None):
                 "shards (or pass --force to merge at your own risk)"
             )
     expected = {}
-    restored = {}
+    before = {}
+    created = {}
     for entry in manifest["shards"]:
         path = os.path.join(src_dir, entry["file"])
         with open(path) as handle:
@@ -151,39 +152,34 @@ def restore_topology(db, src_dir, require_empty=True, retry=None):
             if collection in _SKIP_RESTORE:
                 continue
             expected[collection] = expected.get(collection, 0) + len(docs)
+            if collection not in before:
+                before[collection] = policy.run(
+                    lambda collection=collection: db.count(collection, {}),
+                    op=f"restore.count.{collection}", mode=MODE_ALWAYS,
+                )
             if not docs:
                 continue
             if collection in AUTO_ID_COLLECTIONS:
-                docs = _missing_by_content(db, collection, docs, policy)
-            for start in range(0, len(docs), RESTORE_BATCH):
-                chunk = docs[start:start + RESTORE_BATCH]
-                ops = [("write", [collection, doc], {}) for doc in chunk]
-                outcomes = policy.run(
-                    lambda ops=ops: db.apply_batch(ops),
-                    op=f"restore.write.{collection}", mode=MODE_ALWAYS,
-                )
-                landed = 0
-                for outcome in outcomes:
-                    if isinstance(outcome, DuplicateKeyError):
-                        landed += 1  # a crashed earlier restore got here
-                        continue
-                    if isinstance(outcome, Exception):
-                        raise outcome
-                    landed += 1
-                restored[collection] = restored.get(collection, 0) + landed
-    # Verify: the destination (through the new ring) must hold exactly the
-    # backed-up document counts.
+                landed = _write_by_content(db, collection, docs, policy)
+            else:
+                landed = _write_by_id(db, collection, docs, policy)
+            created[collection] = created.get(collection, 0) + landed
+    # Verify: the destination (through the new ring) must hold every
+    # backed-up document, and exactly what it held before plus what this
+    # restore created: a surplus (a batch written twice) fails as a
+    # shortfall does.
     mismatches = []
     for collection, count in sorted(expected.items()):
         have = policy.run(
             lambda collection=collection: db.count(collection, {}),
             op=f"restore.verify.{collection}", mode=MODE_ALWAYS,
         )
-        if have < count:
-            mismatches.append((collection, count, have))
+        want = before[collection] + created.get(collection, 0)
+        if have < count or have != want:
+            mismatches.append((collection, max(count, want), have))
     if mismatches:
         raise DatabaseError(
-            "restore incomplete: "
+            "restore does not match the backup: "
             + "; ".join(
                 f"{c}: expected {want}, destination holds {have}"
                 for c, want, have in mismatches
@@ -196,15 +192,72 @@ def restore_topology(db, src_dir, require_empty=True, retry=None):
     }
 
 
-def _missing_by_content(db, collection, docs, policy):
-    """The rows of ``docs`` the destination does not hold yet, compared by
-    content outside ``_id`` (a multiset: two equal rows need two), each
-    without its id so the destination assigns one from its own counter."""
+def _write_by_id(db, collection, docs, policy):
+    """Write ``docs`` with their ids in batches; returns how many the
+    destination did not hold yet.  A retried batch is safe: a write whose
+    id already landed comes back as a ``DuplicateKeyError``."""
+    created = 0
+    for start in range(0, len(docs), RESTORE_BATCH):
+        ops = [("write", [collection, doc], {}) for doc in docs[start:start + RESTORE_BATCH]]
+        outcomes = policy.run(
+            lambda ops=ops: db.apply_batch(ops),
+            op=f"restore.write.{collection}", mode=MODE_ALWAYS,
+        )
+        for outcome in outcomes:
+            if isinstance(outcome, DuplicateKeyError):
+                continue  # a crashed earlier restore, or a retried batch, got here
+            if isinstance(outcome, Exception):
+                raise outcome
+            created += 1
+    return created
+
+
+def _write_by_content(db, collection, docs, policy):
+    """Insert the rows of ``docs`` the destination does not hold yet, by
+    content outside ``_id`` (:func:`_missing_by_content`), in batches;
+    returns how many it inserted.
+
+    Nothing stops a row without an id from landing twice, so a batch whose
+    reply was lost after it was applied must not be sent again whole: a
+    retried batch first reads what the destination holds and writes only
+    the rows of the batch that did not land."""
     present = policy.run(
-        lambda: db.read(collection, {}),
+        lambda: _content(db, collection),
         op=f"restore.read.{collection}", mode=MODE_ALWAYS,
     )
-    have = Counter(_canonical(_strip_id(doc)) for doc in present)
+    fresh = _missing_by_content(docs, present)
+    expected = Counter(present)
+    for start in range(0, len(fresh), RESTORE_BATCH):
+        chunk = fresh[start:start + RESTORE_BATCH]
+        retried = []
+
+        def attempt(chunk=chunk):
+            todo = chunk
+            if retried:
+                landed = _content(db, collection) - expected
+                todo = _missing_by_content(chunk, landed)
+            retried.append(True)
+            return db.apply_batch([("write", [collection, doc], {}) for doc in todo])
+
+        outcomes = policy.run(attempt, op=f"restore.write.{collection}", mode=MODE_ALWAYS)
+        for outcome in outcomes:
+            if isinstance(outcome, Exception):
+                raise outcome
+        expected.update(_canonical(doc) for doc in chunk)
+    return len(fresh)
+
+
+def _content(db, collection):
+    """The destination's rows of ``collection`` as a multiset of their
+    content outside ``_id``."""
+    return Counter(_canonical(_strip_id(doc)) for doc in db.read(collection, {}))
+
+
+def _missing_by_content(docs, present):
+    """The rows of ``docs`` not in the multiset ``present`` (two equal rows
+    need two), each without its id so the destination assigns one from
+    its own counter."""
+    have = Counter(present)
     fresh = []
     for doc in docs:
         key = _canonical(_strip_id(doc))

@@ -10,9 +10,9 @@ answers the two questions the merged records exist for:
   storage channel keyed by experiment; adopting SERVERS have no experiment
   identity, so they flush under the reserved :data:`SERVER_EXPERIMENT` id
   and the merge joins them back by ``trace_id``: a server span is included
-  exactly when its trace appears in the experiment's own spans.  The port
-  has no server yet (``netdb`` is ROADMAP queue A item 7), so the server
-  side of the merge and :func:`is_server_span` find nothing until then.
+  exactly when its trace appears in the experiment's own spans.  The
+  port's ``db serve`` (``orion_tpu_torch/storage/netdb.py``) flushes its
+  spans that way, and :func:`is_server_span` recognizes its tracks.
 
 - **attribution** (:func:`attribute_traces` / :func:`summarize_attribution`):
   the per-trace critical-path split behind ``orion-tpu-torch trace
@@ -22,9 +22,9 @@ answers the two questions the merged records exist for:
 
   - **device**: spans named in :data:`DEVICE_SPAN_NAMES` (async device
     windows such as the speculative ring's ``device.dispatch``).  The
-    port's ``suggest_step.dispatch`` is not one of them: eager PyTorch
-    issues the round's launches from Python inside it, so it is host
-    time and books to client-host;
+    port's ``suggest_step.dispatch`` is not one of them: it times the
+    host issuing the round (a CUDA-graph replay and its copy-out, or an
+    eager round's launches), so it books to client-host;
   - **server-host**: spans recorded on server tracks (worker label with a
     ``netdb:``/``gateway:`` prefix) minus their own device children;
   - **wire**: for every client span that has server-track children, the

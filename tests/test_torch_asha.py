@@ -178,7 +178,8 @@ def test_asha_bo_model_round_matches_reference(rounds):
     ref, port = _asha_bo_pair(rounds)
     assert (port._host.count > port.tr_local_m) == (rounds == 7)
     plan = ref._gp_plan(12)
-    inputs, kw = port._model_inputs(12)
+    port_plan = port._gp_plan(12)
+    inputs, kw = port_plan.arrays[1:], port_plan.statics
     statics = {k: v for k, v in plan.statics.items() if k != "mesh"}
     assert kw == statics and kw["q"] == 16 and kw["fixed_tail_cols"] == 1
     key, *arrays = plan.arrays
@@ -195,8 +196,7 @@ def test_asha_bo_model_round_matches_reference(rounds):
     np.testing.assert_allclose(rows_t.numpy(), np.asarray(rows_j), atol=1e-5)
     # Warm rounds refit with refit_steps from the last hypers.
     port._gp_state = state_t
-    _, kw_warm = port._model_inputs(12)
-    assert kw_warm["fit_steps"] == 3
+    assert port._gp_plan(12).statics["fit_steps"] == 3
 
 
 def test_reference_asha_bo_state_restored_gives_the_same_inputs():
@@ -206,7 +206,8 @@ def test_reference_asha_bo_state_restored_gives_the_same_inputs():
     restored.set_state(algo_state_from_jax(ref.state_dict()))
     ref.set_state(ref.state_dict())  # the reference restores cold, as the port
     plan = ref._gp_plan(8)
-    inputs, kw = restored._model_inputs(8)
+    restored_plan = restored._gp_plan(8)
+    inputs, kw = restored_plan.arrays[1:], restored_plan.statics
     assert kw == {k: v for k, v in plan.statics.items() if k != "mesh"}
     for got, want in zip(inputs[:4], plan.arrays[1:5]):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))

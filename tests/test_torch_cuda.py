@@ -5,6 +5,9 @@ none, runs it without the suite's conftest:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import json
+import time
+
 import pytest
 import torch
 
@@ -233,8 +236,8 @@ def test_optimize_gp_round_at_q1024_launches_fused_gram_at_the_main_shape(cuda, 
 @pytest.mark.cuda
 def test_naive_copy_generator_hand_off_on_cuda(cuda):
     """With trials in flight, the producer's naive copy observes the lies
-    and suggests; the real algorithm's ``cuda`` generator takes the naive
-    copy's state (a copy, not the object) and its history holds no lie."""
+    and suggests; the real algorithm's ``cuda`` generators take the naive
+    copy's states (copies, not the objects) and its history holds no lie."""
     from orion_tpu_torch.client.experiment import ExperimentClient
     from orion_tpu_torch.core.experiment import build_experiment
     from orion_tpu_torch.storage.base import create_storage
@@ -248,13 +251,15 @@ def test_naive_copy_generator_hand_off_on_cuda(cuda):
     first = client.suggest(8)
     client.observe_all(first[:6], [float(t.params["x0"]) for t in first[:6]])
     real = client.producer.algorithm
-    assert real.generator.device.type == "cuda"
-    before = real.generator.get_state().clone()
+    assert real.model_generator.device.type == "cuda"
+    before = real.model_generator.get_state().clone()
     assert len(client.suggest(4)) == 4
     naive = client.producer.naive_algorithm
-    after = real.generator.get_state()
+    after = real.model_generator.get_state()
     assert not torch.equal(before, after)
-    assert torch.equal(after, naive.generator.get_state())
+    assert torch.equal(after, naive.model_generator.get_state())
+    assert real.model_generator is not naive.model_generator
+    assert torch.equal(real.generator.get_state(), naive.generator.get_state())
     assert real.generator is not naive.generator
     assert real._hist.count == 6 and naive._hist.count == 8
     assert real._hist._x.data_ptr() != naive._hist._x.data_ptr()
@@ -405,11 +410,13 @@ def telemetry_off_after():
 @pytest.mark.cuda
 @pytest.mark.parametrize("first", ["off", "on"])
 def test_main_path_rows_equal_with_telemetry_on_and_off(cuda, telemetry_off_after, first):
-    """The main path's round (130 observed, q=1024, 16384 candidates): two
-    copies of one algorithm, one suggesting with telemetry off, the other
-    with it on, in either order, give equal rows (exact), and the on round
-    books one ``suggest_step.dispatch`` span of ``{"q": 1024, "n": 256}``
-    with a ``fused_gram`` launch."""
+    """The main path's round (130 observed, q=1024, 16384 candidates): a
+    third copy captures the round's signature first (its warm-up round is
+    eager); then two copies of one algorithm, one suggesting with telemetry
+    off, the other with it on, in either order, replay it and give equal
+    rows (exact, and equal to the eager round's), and the on round books
+    one ``suggest_step.dispatch`` span of ``{"q": 1024, "n": 256}`` with a
+    ``fused_gram`` launch."""
     import copy
 
     import numpy as np
@@ -428,7 +435,7 @@ def test_main_path_rows_equal_with_telemetry_on_and_off(cuda, telemetry_off_afte
     algo.observe([{f"x{i}": float(r[i]) for i in range(6)} for r in x],
                  [{"objective": float(v)} for v in y])
     twin = copy.deepcopy(algo)
-    rows = {}
+    rows = {"eager": copy.deepcopy(algo).suggest_batch(1024).cube}
     for mode in ((first, "on" if first == "off" else "off")):
         target = algo if mode == "off" else twin
         for owner in (telemetry, flight):
@@ -440,6 +447,7 @@ def test_main_path_rows_equal_with_telemetry_on_and_off(cuda, telemetry_off_afte
         telemetry.disable()
         flight.disable()
     assert np.array_equal(rows["off"], rows["on"])
+    assert np.array_equal(rows["off"], rows["eager"])
     spans = telemetry.drain_spans()
     assert [(s["name"], s["args"]) for s in spans] == [
         ("suggest_step.dispatch", {"q": 1024, "n": 256})]
@@ -594,12 +602,14 @@ def test_rebalanced_experiment_resumes_tpu_bo_with_a_gp_round(cuda, monkeypatch)
         assert stats["trials_completed"] == 1024
         [exp] = storage.fetch_experiments({"name": "day2"})
         src = HashRing(three).lookup(exp["_id"])
+        tried = []
         for _ in range(40):  # each new address re-rolls the four-shard ring
             four = three + [serve()]
+            tried.append(four[-1])
             if HashRing(four).lookup(exp["_id"]) != src:
                 break
         dst = HashRing(four).lookup(exp["_id"])
-        assert dst != src
+        assert dst != src, (exp["_id"], three, tried)
         before = sorted(dumps_canonical(d) for d in storage.db.read(
             "trials", {"experiment": exp["_id"]}))
         storage = create_storage(stanza(four))
@@ -616,11 +626,8 @@ def test_rebalanced_experiment_resumes_tpu_bo_with_a_gp_round(cuda, monkeypatch)
         launches = gram.fused_gram.launches
         shapes.clear()
         storage = create_storage(stanza(four))  # a router with no placement cached
-        # Another seed: with seed 0 again the new instance's first draws are
-        # the random round's points, and their duplicates send the producer
-        # back for another round.
         stats = optimize(None, priors, max_trials=2048, batch_size=1024, algorithm=HUNT_ALGO,
-                         seed=1, batch_eval=hartmann6, storage=storage, name="day2")
+                         seed=0, batch_eval=hartmann6, storage=storage, name="day2")
         assert stats["trials_completed"] == 2048
         assert gram.fused_gram.launches - launches == len(shapes) >= 1, shapes
         assert set(shapes) == {(16384, 256, 6)}, shapes
@@ -630,3 +637,285 @@ def test_rebalanced_experiment_resumes_tpu_bo_with_a_gp_round(cuda, monkeypatch)
         for server in started:
             server.shutdown()
             server.server_close()
+
+
+# --- the captured round (orion_tpu_torch/algo/step_graphs.py) -------------------
+
+MAIN_ALGO = {"tpu_bo": {"n_init": 16, "n_candidates": 16384, "fit_steps": 40,
+                        "local_frac": 0.3, "prewarm": False}}
+ASHA_BO_ALGO = {"asha_bo": {"n_init": 128, "n_candidates": 8192, "fit_steps": 30,
+                            "refit_steps": 10, "local_frac": 0.8, "trust_region": True,
+                            "y_transform": "copula", "tr_perturb_dims": 12,
+                            "num_brackets": 3}}
+
+
+def _main_path_algo(device, seed=3, config=MAIN_ALGO, n_obs=130, width=6):
+    """``tpu_bo`` at the main path's configuration with ``n_obs`` observed
+    Hartmann6 points (130: a 256-row fit buffer)."""
+    import numpy as np
+
+    from orion_tpu_torch.algo.base import create_algo
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.space.dsl import build_space
+
+    space = build_space({f"x{i}": "uniform(0, 1)" for i in range(width)})
+    algo = create_algo(space, config, seed=seed, device=device)
+    x = np.random.default_rng(seed).uniform(size=(n_obs, width)).astype(np.float32)
+    y = hartmann6(torch.from_numpy(x[:, :6])).numpy()
+    algo.observe_arrays(x, y)
+    return algo
+
+
+def _asha_bo_algo(device):
+    """``asha_bo`` at the ``asha_bo-ackley50`` preset after its random round
+    of 512 (a 512-row fit buffer of 51 columns)."""
+    from orion_tpu_torch.algo.base import create_algo
+    from orion_tpu_torch.benchmarks.functions import ackley
+    from orion_tpu_torch.space.dsl import build_space
+
+    priors = {f"x{i:02d}": "uniform(0, 1)" for i in range(50)}
+    priors["budget"] = "fidelity(1, 256, 4)"
+    space = build_space(priors)
+    algo = create_algo(space, ASHA_BO_ALGO, seed=0, device=device)
+    params = algo.suggest(512)
+    cube = space.params_to_cube(params)
+    algo.observe(params, [{"objective": float(v)} for v in ackley(torch.from_numpy(cube))])
+    return algo
+
+
+def _ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["tpu_bo", "asha_bo"])
+def test_replayed_round_is_bitwise_the_eager_round(cuda, path):
+    """The main path's round at q=1024 and ``asha_bo``'s at the preset:
+    rows, health and GP state of a replay equal (bitwise) those of
+    ``_suggest_step`` run eagerly on the same plan, and so do the miss's
+    (the warm-up round's).  Prints the eager and the replayed round's
+    ms."""
+    from orion_tpu_torch.algo import tpu_bo as tbo
+    from orion_tpu_torch.algo.step_graphs import StepGraphs
+
+    if path == "tpu_bo":
+        plan = _main_path_algo(cuda).fused_step_plan(1024)
+    else:
+        plan = _asha_bo_algo(cuda)._gp_plan(512)
+    graphs = StepGraphs()
+
+    def through_graphs():
+        return graphs.run(tbo._suggest_step, plan.signature, plan.arrays, plan.statics)
+
+    (eager_rows, eager_state), eager_ms = _ms(lambda: tbo._suggest_step(*plan.arrays,
+                                                                         **plan.statics))
+    ((rows, state), entry, missed), miss_ms = _ms(through_graphs)
+    assert missed and entry.graph is not None
+    results = [(rows, state)]
+    replay_ms = []
+    for _ in range(3):
+        ((rows, state), _entry, missed), ms = _ms(through_graphs)
+        assert not missed
+        results.append((rows, state))
+        replay_ms.append(ms)
+    for rows, state in results:
+        assert torch.equal(rows, eager_rows)
+        assert torch.equal(state.health, eager_state.health)
+        for got, want in zip(state.hypers, eager_state.hypers):
+            assert torch.equal(got, want)
+        assert torch.equal(state.chol, eager_state.chol)
+        assert torch.equal(state.alpha, eager_state.alpha)
+    print(json.dumps({"path": path, "eager_ms": eager_ms, "miss_ms": miss_ms,
+                      "capture_ms": entry.capture_ms, "instantiate_ms": entry.instantiate_ms,
+                      "graph_nodes": entry.graph_nodes, "replay_ms": replay_ms,
+                      "pool_bytes": entry.pool_bytes}))
+
+
+def _signature_plans(device):
+    """One plan per signature that ``chip_smoke.py`` reaches: the main
+    path (q=1024, cold and warm), the regret scenario's fit buckets at
+    q=16, ``asha_bo``'s fit buckets at the preset, and the q buckets 8 to
+    1024 at the main path's 256-row buffer."""
+    from orion_tpu_torch.algo.gp.gp import init_hypers
+    from orion_tpu_torch.algo.tpu_bo import make_fused_plan
+
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def plan(m, width, num, warm, **kw):
+        x = torch.rand((m, width), generator=gen, device=device)
+        y = torch.rand((m,), generator=gen, device=device)
+        mask = (torch.arange(m, device=device) < (m * 3) // 4).to(torch.float32)
+        best_x = x[0, :width - kw.get("fixed_tail_cols", 0)].clone()
+        state = None
+        if warm:
+            class Warm:
+                hypers = init_hypers(width, device=device)
+            state = Warm()
+        return make_fused_plan(gen, x, y, mask, best_x, state, num, tr_length=0.8, **kw)
+
+    main = dict(n_candidates=16384, kernel="matern52", acq="thompson", fit_steps=40,
+                local_frac=0.3, local_sigma=0.1, beta=2.0, trust_region=True,
+                y_transform="copula")
+    asha = dict(n_candidates=8192, kernel="matern52", acq="thompson", fit_steps=30,
+                refit_steps=10, local_frac=0.8, local_sigma=0.125, beta=2.0,
+                trust_region=True, tr_perturb_dims=12, y_transform="copula",
+                fixed_tail_cols=1)
+    plans = [plan(256, 6, 1024, False, **main), plan(256, 6, 1024, True, **main)]
+    plans += [plan(m, 6, 16, m > 64, **main) for m in (64, 128, 256)]
+    plans += [plan(m, 51, 512, m > 128, **asha) for m in (128, 256, 512)]
+    plans += [plan(256, 6, q, True, **main) for q in (8, 16, 32, 64, 128, 256, 512)]
+    unique = {}
+    for p in plans:
+        unique.setdefault(p.signature, p)
+    return list(unique.values())
+
+
+@pytest.mark.cuda
+def test_shared_pool_holds_at_most_one_and_a_half_of_the_largest_signature(cuda):
+    """Every signature ``chip_smoke.py`` reaches, captured into ONE pool,
+    holds at most 1.5x the largest signature's pool measured alone (each
+    in a fresh pool).  Prints both numbers."""
+    import gc
+
+    from orion_tpu_torch.algo import tpu_bo as tbo
+    from orion_tpu_torch.algo.step_graphs import StepGraphs
+
+    plans = _signature_plans(cuda)
+    alone = {}
+    for plan in plans:
+        graphs = StepGraphs()
+        graphs.run(tbo._suggest_step, plan.signature, plan.arrays, plan.statics)
+        alone[plan.signature] = graphs.pool_bytes()
+        del graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+    shared = StepGraphs()
+    for plan in plans:
+        shared.run(tbo._suggest_step, plan.signature, plan.arrays, plan.statics)
+    for plan in plans:  # replays in another order than the captures
+        shared.run(tbo._suggest_step, plan.signature, plan.arrays, plan.statics)
+    largest = max(alone.values())
+    print(json.dumps({"signatures": len(plans), "shared_pool_bytes": shared.pool_bytes(),
+                      "largest_alone_bytes": largest,
+                      "alone_bytes": sorted(alone.values())}))
+    assert shared.captured_count() == len(plans)
+    assert shared.pool_bytes() <= 1.5 * largest
+
+
+@pytest.mark.cuda
+def test_replayed_rounds_count_one_fused_gram_launch_each(cuda, monkeypatch, tmp_path):
+    """Rounds of one algorithm at the main path: each counts one
+    ``fused_gram`` launch at 16384 x 256 x 6 in ``fused_gram.launches`` and
+    in the launch-plan hook, the first (warm-up and capture) and the
+    replays alike; under ``torch.profiler`` the replayed rounds' kernels
+    carry the kernel's name and each sits in its ``fused_gram MxNxD``
+    range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+
+    shapes = []
+    plan = gram._launch_plan
+
+    def recording_plan(m, n, d, aligned):
+        shapes.append((m, n, d))
+        return plan(m, n, d, aligned)
+
+    monkeypatch.setattr(gram, "_launch_plan", recording_plan)
+    algo = _main_path_algo(cuda, seed=4)
+    rounds = 4
+    before = gram.fused_gram.launches
+    for _ in range(rounds):
+        algo.suggest_batch(1024)
+    torch.cuda.synchronize()
+    assert gram.fused_gram.launches - before == len(shapes) == rounds
+    assert set(shapes) == {(16384, 256, 6)}
+    signature = algo.fused_step_plan(1024).signature
+    assert STEP_GRAPHS.has(cuda, signature)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            algo.suggest_batch(1024)
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as handle:
+        events = json.load(handle)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "gram_kernel" in e.get("name", "")]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") == f"{gram.PROFILE_RANGE} 16384x256x6"]
+    assert len(kernels) == len(ranges) == rounds
+    assert gram.fused_gram.launches - before == 2 * rounds
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_out_of_suggest(cuda, monkeypatch):
+    """A capture that fails (here: a device synchronization inside the
+    captured round) raises out of ``suggest``, with no eager result, and
+    leaves no entry behind."""
+    from orion_tpu_torch.algo import tpu_bo as tbo
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+
+    ei = tbo.expected_improvement
+
+    def syncing(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return ei(*args, **kwargs)
+
+    monkeypatch.setattr(tbo, "expected_improvement", syncing)
+    config = {"tpu_bo": {"n_init": 16, "n_candidates": 1024, "fit_steps": 3,
+                         "local_frac": 0.25, "prewarm": False}}
+    algo = _main_path_algo(cuda, seed=5, config=config, n_obs=40)
+    signature = algo.fused_step_plan(32).signature
+    with pytest.raises(Exception):
+        algo.suggest_batch(32)
+    assert not STEP_GRAPHS.has(cuda, signature)
+    monkeypatch.setattr(tbo, "expected_improvement", ei)
+    assert algo.suggest_batch(32).cube.shape == (32, 6)
+    assert STEP_GRAPHS.has(cuda, signature)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fail", [False, True], ids=["prewarmed", "failed-prewarm"])
+def test_bucket_crossing_after_a_prewarm(cuda, monkeypatch, telemetry_off_after, fail):
+    """A history crossing 64 -> 128 with ``prewarm=True``: a prewarm that
+    succeeded leaves the crossing round no synchronous recapture; one that
+    failed is counted as finished and failed, and the crossing round then
+    captures synchronously, attributed ``fit_bucket 64→128``."""
+    from orion_tpu_torch.algo import tpu_bo as tbo
+    from orion_tpu_torch.compiler_plane import COMPILE_REGISTRY
+
+    telemetry, _flight = telemetry_off_after
+    telemetry.enabled = True
+    COMPILE_REGISTRY.reset()
+    if fail:
+        def broken(*args, **kwargs):
+            raise RuntimeError("prewarm capture made to fail")
+
+        monkeypatch.setattr(tbo, "prewarm_suggest_step", broken)
+    # A candidate count of each case's own: the step graphs are process-wide,
+    # so the other case must not have captured this one's signatures.
+    config = {"tpu_bo": {"n_init": 16, "n_candidates": 2048 + 8 * int(fail), "fit_steps": 4,
+                         "local_frac": 0.25, "prewarm": True}}
+    algo = _main_path_algo(cuda, seed=6, config=config, n_obs=40, width=6)
+    for _ in range(2):  # 40 -> 56 (the prewarm starts at 48 of 64) -> 72
+        rows = algo.suggest_batch(16).cube
+        algo.observe_arrays(rows, rows.sum(axis=1))
+        algo._prewarmer.wait()
+    assert algo._hist.fit_view()[0].shape[0] == 128
+    assert algo._prewarmer.completed_count() == 1
+    assert algo._prewarmer.failed_count() == int(fail)
+    before = [e for e in COMPILE_REGISTRY.entries() if e.kind == "recapture"]
+    assert algo.suggest_batch(16).cube.shape == (16, 6)
+    after = [e for e in COMPILE_REGISTRY.entries() if e.kind == "recapture"]
+    new = after[len(before):]
+    if fail:
+        assert [e.fields["fit_bucket"] for e in new] == [128]
+    else:
+        assert new == []
+        assert [e.kind for e in COMPILE_REGISTRY.entries()].count("prewarm") == 1

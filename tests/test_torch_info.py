@@ -1,9 +1,11 @@
 """The port's ``info`` (``orion_tpu_torch/cli/info.py``) against
 ``orion_tpu``'s on the same stores: the experiment's sections, the
-producer's timings, the merged telemetry snapshots and the health records
-print as the reference prints them; the sections whose parts wait for
-another ROADMAP item print one line naming it; ``info --all`` over a
-sharded plane leads with the reference's topology line."""
+producer's timings, the merged telemetry snapshots with their host/device
+ratio lines, the compiler digest (the port's CUDA-graph counters under the
+reference's layout) and the health records print as the reference prints
+them; the doctor's section, which waits for another ROADMAP item, prints
+one line naming it; ``info --all`` over a sharded plane leads with the
+reference's topology line."""
 
 import re
 import time
@@ -28,8 +30,22 @@ def _sections(text):
     return out
 
 
+#: The compiler plane's counters and gauges, the reference's name and the
+#: port's, with one value each.
+COMPILER_NAMES = [("jax.compiles", "cuda_graph.captures", 3),
+                  ("jax.retraces", "cuda_graph.recaptures", 2),
+                  ("jax.retraces.attributed", "cuda_graph.recaptures.attributed", 2),
+                  ("jax.retraces.prewarm_covered", "cuda_graph.recaptures.prewarm_covered", 0)]
+COMPILER_GAUGES = [("compiler.compile_ms_total", "compiler.capture_ms_total", 812.5),
+                   ("compiler.hbm_bytes_max", "compiler.hbm_bytes_max", 7.1e8),
+                   ("compiler.hbm_capacity_bytes", "compiler.hbm_capacity_bytes", 8.5e10),
+                   ("compiler.hbm_bound_q", "compiler.hbm_bound_q", 122000)]
+
+
 def _fill_channels(storage, exp_id):
-    """Producer timings, two workers' metrics snapshots and health records,
+    """Producer timings, two workers' metrics snapshots (with the round and
+    device-window histograms of the host/device ratio, and the compiler
+    plane's counters under both packages' names) and health records,
     written as the reference's producer writes them."""
     storage.record_timings(exp_id, [("suggest", 0.011, 4), ("observe", 0.002, 4),
                                     ("register", 0.004, 4), ("suggest", 0.013, 4)])
@@ -37,8 +53,17 @@ def _fill_channels(storage, exp_id):
         telemetry = RefTelemetry(enabled=True)
         for k in range(5):
             telemetry.observe("storage.network.reserve_trial", 0.001 * scale * (k + 1))
+        for k in range(4):
+            telemetry.observe("producer.round", 0.05 * scale * (k + 1))
+            telemetry.observe("device.dispatch", 0.03 * (k + 1))
         telemetry.count("storage.retries", int(scale))
         telemetry.set_gauge("pacemaker.heartbeat_lag_s", 0.5 * scale)
+        for ref_name, port_name, value in COMPILER_NAMES:
+            telemetry.count(ref_name, value)
+            telemetry.count(port_name, value)
+        for ref_name, port_name, value in COMPILER_GAUGES:
+            telemetry.set_gauge(ref_name, value)
+            telemetry.set_gauge(port_name, value)
         snapshot = telemetry.snapshot()
         storage.record_metrics(exp_id, snapshot, worker=worker)
         storage.record_health(exp_id, {"round": 3, "n_obs": 12, "best_y": 0.25 * scale,
@@ -60,17 +85,17 @@ def test_info_prints_the_reference_sections(tmp_path, capsys):
     for port_text, ref_text in ((outputs[0], outputs[2]), (outputs[1], outputs[3])):
         port, ref = _sections(port_text), _sections(ref_text)
         for title in ("Commandline", "Config", "Algorithm", "Space", "Meta-data",
-                      "Parent experiment", "Stats", "Performance", "Health"):
+                      "Parent experiment", "Stats", "Performance", "Telemetry", "Health"):
             assert port[title] == ref[title], title
-        # Each snapshot block ends with the ratio line, which waits for item 6.
-        port_lines = port["Telemetry"].splitlines()
-        assert [line for line in port_lines if line != info.RATIO_NOT_PORTED] == [
-            line for line in ref["Telemetry"].splitlines()
-            if not line.startswith("host/device ratio")]
+        # Each snapshot block ends with its host/device ratio line.
         blocks = port["Telemetry"].count("--- worker ") or 1
-        assert port_lines.count(info.RATIO_NOT_PORTED) == blocks
+        assert port["Telemetry"].count("host/device ratio: ") == blocks
         assert "storage.network.reserve_trial: 10 samples" in outputs[0]
-        assert port["Compiler"].strip() == info.COMPILER_NOT_PORTED and "item 6" in port["Compiler"]
+        renamed = (port["Compiler"].replace("recaptures", "retraces")
+                   .replace("captures:", "compiles:").replace("capture time", "compile time")
+                   .replace("orion-tpu-torch profile", "orion-tpu profile"))
+        assert renamed == ref["Compiler"]
+        assert port["Compiler"].startswith("captures: 6  recaptures: 4 (4 attributed, ")
         assert port["Doctor"].strip() == info.DOCTOR_NOT_PORTED and "item 9" in port["Doctor"]
     assert "workers reporting: 2" in outputs[1] and "--- worker w2" in outputs[1]
 

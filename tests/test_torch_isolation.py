@@ -2,8 +2,8 @@
 neither JAX (``jax``, ``jaxlib``, ``optax``) nor any module of the JAX
 package ``orion_tpu`` — matched as the exact module or a dotted prefix, so
 ``orion_tpu_torch`` itself does not count.  The telemetry plane's, the
-network plane's and the day-2 operations' modules are also checked by
-name, and for importing without side effects."""
+network plane's, the day-2 operations' and the device plane's modules are
+also checked by name, and for importing without side effects."""
 
 import ast
 import os
@@ -201,6 +201,41 @@ def test_day2_operations_stand_alone():
     env = {k: v for k, v in os.environ.items()
            if k not in ("ORION_TPU_TELEMETRY", "ORION_TPU_FLIGHT", "ORION_TPU_METRICS_PORT")}
     env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+DEVICE_PLANE = ("algo.step_graphs", "algo.prewarm", "algo.tpu_bo", "algo.asha_bo",
+                "compiler_plane", "devmem", "hostbudget", "utils.jit_cache", "utils.flatten",
+                "cli.profile", "cli.top")
+
+
+def test_device_plane_stands_alone():
+    """The step graphs, the prewarmer, the compiler plane, the memory
+    sampler, the host budget, the build cache, ``flatten`` and the
+    ``profile`` and ``top`` commands are among the checked files, and in a
+    fresh interpreter importing them loads neither JAX nor ``orion_tpu``,
+    starts no thread (the prewarmer starts its threads on an observe, never
+    at import), initializes no CUDA and captures nothing."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in DEVICE_PLANE:
+        assert os.path.join("orion_tpu_torch", *name.split(".")) + ".py" in files
+    modules = [f"orion_tpu_torch.{name}" for name in DEVICE_PLANE]
+    code = (
+        "import importlib, sys, threading\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import torch\n"
+        "from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert STEP_GRAPHS.entries() == [] and STEP_GRAPHS.pool is None\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

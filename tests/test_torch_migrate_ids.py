@@ -127,9 +127,16 @@ def test_sharded_migration_lands_on_each_experiments_shard(servers):
     router = ShardedNetworkDB(["%s:%s" % s.address for s in started], reconnect_jitter=0,
                               timeout=5.0)
     storage = DocumentStorage(router)
-    exp_ids = [_seed(storage, name=f"mig-{i}", rounds=1) for i in range(3)]
+    # The servers' ports are ephemeral, so the ring differs from run to run:
+    # three experiments share one shard about one run in nine.  Seed more
+    # (up to twelve) until they span two shards.
+    exp_ids = []
+    for i in range(12):
+        exp_ids.append(_seed(storage, name=f"mig-{i}", rounds=1))
+        if len(exp_ids) >= 3 and len({router.shard_for(e) for e in exp_ids}) > 1:
+            break
     assert len({router.shard_for(e) for e in exp_ids}) > 1
-    assert len(migrate_ids.IdMigrator(storage).run()) == 3
+    assert len(migrate_ids.IdMigrator(storage).run()) == len(exp_ids)
     space = ref_build_space(dict(PRIORS))
     for exp_id in exp_ids:
         docs = router.read("trials", {"experiment": exp_id})

@@ -177,7 +177,7 @@ def test_tpu_bo_lies_stay_out_of_the_real_history_and_the_stream_moves_on():
     client.observe_all(done, [_objective(t.params) for t in done])  # 2 left in flight
     producer = client.producer
     real = producer.algorithm
-    before = real.generator.get_state().clone()
+    before = real.model_generator.get_state().clone()
     second = client.suggest(4)  # a GP round, 6 observed + 2 lies
     naive = producer.naive_algorithm
     assert len(second) == 4
@@ -192,11 +192,14 @@ def test_tpu_bo_lies_stay_out_of_the_real_history_and_the_stream_moves_on():
     assert sorted(map(tuple, x[:6].tolist())) == sorted(map(tuple, completed.tolist()))
     assert not x[6:].any() and not y[6:].any() and mask.sum() == 6
     assert real._hist._x is not naive._hist._x
-    # The real generator moved on to where the naive copy's stands, as a
-    # copy of its state, not a shared object.
-    after = real.generator.get_state()
+    # The real model stream (the GP round's draws) moved on to where the
+    # naive copy's stands, as a copy of its state, not a shared object; so
+    # did the random rounds' stream.
+    after = real.model_generator.get_state()
     assert not torch.equal(before, after)
-    assert torch.equal(after, naive.generator.get_state())
+    assert torch.equal(after, naive.model_generator.get_state())
+    assert real.model_generator is not naive.model_generator
+    assert torch.equal(real.generator.get_state(), naive.generator.get_state())
     assert real.generator is not naive.generator
     # The next round's draws differ from this one's.
     third = client.suggest(4)
