@@ -57,11 +57,11 @@ non-zero; nothing is caught and passed over):
    scenario through ``optimize()``, judged by the port's gate.
 9. ``cli``: ``orion-tpu-torch hunt`` over a pure-Python Hartmann6 user
    script (one subprocess a trial) with the main path's ``tpu_bo``.  First
-   one worker in this process on SQLite, ``--pool-size 1024``, 1040 trials
-   (a random round of 1024, then a GP round of which 16 run), the
-   kernel's launch shapes counted over the call (a launch at 16384 x 256
-   x 6), with each trial's subprocess, reservation, completion and status
-   reads timed.  Then ``--n-workers 8 --profile`` as a subprocess on a
+   one worker in this process on SQLite, ``--pool-size 1024``, 128 trials
+   past a history of 1024 completed through the library (its first round a
+   GP round), the kernel's launch shapes counted over the call (a launch at
+   16384 x 256 x 6), with each trial's subprocess, reservation, completion
+   and status reads timed.  Then ``--n-workers 8 --profile`` as a subprocess on a
    fresh SQLite file, 1088 trials: no trial run twice (the script logs
    each execution), lies registered, the kernel counted in the workers'
    profiler traces, with each worker's device busy time and idle share.
@@ -71,7 +71,7 @@ non-zero; nothing is caught and passed over):
 10. ``evc``: experiment version control through the CLI on the ``cli``
    phase's one-worker store.  ``hunt -n cli`` again with ``x0 ~ uniform(0,
    0.5)`` branches version 2 (a prior change), then with ``x1`` narrowed as
-   well version 3; each runs 64 trials of its own at ``--pool-size 1024``.
+   well version 3; each runs 32 trials of its own at ``--pool-size 1024``.
    Each child's producer fetches its ancestors' trials through the EVC
    tree, adapted hop by hop, so its first round is a GP round (a
    ``fused_gram`` launch at 16384 x 256 x 6).  Checks the ``refers`` chain,
@@ -86,14 +86,18 @@ non-zero; nothing is caught and passed over):
    ``TELEMETRY``/``FLIGHT`` off and 6 on, alternating, each pair drawn from
    one copy of the algorithm: their rows must be equal; the median round ms
    of each and their ratio, the ``suggest_step.dispatch`` spans.  (b)
-   ``orion-tpu-torch hunt --n-workers 4 --profile`` on a fresh SQLite file
-   (the ``cli`` phase's script and unseeded ``tpu_bo``, ``--pool-size
-   1024``, 1088 trials), twice: with ``telemetry: false``, and with
+   ``orion-tpu-torch hunt --n-workers 4 --profile`` on a SQLite file
+   seeded through the library with 256 completed trials and 384 pending
+   (a random round partly run: the workers run them out, then each pays
+   its own GP round), 64 trials past them (the ``cli`` phase's script and
+   unseeded ``tpu_bo``, ``--pool-size 1024``), twice: with ``telemetry:
+   false``, and with
    ``telemetry: true`` and a free ``metrics_port``, on first unless
    ``--fleet-off-first`` is given.  While the telemetry run goes,
    ``/metrics`` (Prometheus text, a growing ``storage_sqlite_txn``
    histogram) and ``/healthz`` are scraped; then ``metrics`` (four
-   snapshots merged, completions equal to the trials run), ``trace`` (a
+   snapshots merged, completions equal to the trials the workers ran),
+   ``trace`` (a
    Chrome trace with ``producer.round`` on four tracks, storage spans
    parented inside them, ``suggest_step.dispatch``), ``trace --attribute``
    and ``flight-record``.  In each run the kernel's launches and their
@@ -111,7 +115,7 @@ non-zero; nothing is caught and passed over):
    1024``, traced with ``--profile``, ``telemetry: true``.  (a) One server
    with ``--persist`` SQLite and ``--secret-file``; ``hunt --n-workers 4``
    through ``ORION_DB_TYPE=network``, ``ORION_DB_ADDRESS`` and
-   ``ORION_DB_SECRET_FILE``, 128 trials past a history of 256 completed
+   ``ORION_DB_SECRET_FILE``, 64 trials past a history of 256 completed
    through the library (so that the workers' first rounds are GP rounds):
    completed equal to the distinct executions (none twice), every
    completion read back from the server and, after its clean shutdown,
@@ -121,7 +125,7 @@ non-zero; nothing is caught and passed over):
    primaries, each replicating to one replica with ``--quorum 1``, a
    ``shards:`` stanza; two experiments the ring places on different
    shards (checked against ``db ring``), hunted at once by two workers
-   each, 128 trials each past a history of 256: every completion on the
+   each, 64 trials each past a history of 256: every completion on the
    shard's primary and on
    its replica once their seqs are equal; ``db status --json`` (primaries,
    quorum 1, lag 0), ``audit --all`` with the topology line, ``metrics``
@@ -174,7 +178,28 @@ non-zero; nothing is caught and passed over):
    and ``profile --json``, ``top --json`` and ``info`` over it show the
    capture table, the worker's captures, memory and host/device ratio, the
    ratio line and the health records' ``mem_bytes``.
-15. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+15. ``diagnosis``: the doctor and the runtime sanitizer at the main path's
+   width (``tpu_bo``, 16384 candidates, q=1024).  (a) One ``hunt`` worker
+   with ``doctor_interval: 2``, telemetry and a free ``metrics_port``, 32
+   trials past a history of 256: while it runs ``/healthz`` carries a
+   ``doctor`` block, ``/metrics`` the ``orion_tpu_doctor_findings`` family
+   with declared severities only, and watchdog passes over its store are
+   timed here; then ``doctor --json`` exits 0 with no critical finding,
+   ``info`` prints a doctor line, ``top --json`` has a doctor block.  (b)
+   ``tpu_bo`` through an ``ExperimentClient`` on SQLite in this process,
+   telemetry on, each GP round at the next q bucket (8 ... 1024, again):
+   every round pays a CUDA-graph capture the compiler plane books as a
+   recapture, until DX001's bars hold (10 rounds, recaptures at least
+   half of them): ``run_rules(local_snapshot())`` holds DX001 critical and
+   ``doctor --json`` over the store exits 1 naming it; the recaptures'
+   ms and the shared pool's bytes after them.  (c) ``orion-tpu-torch tsan
+   -- hunt --n-workers 2`` with telemetry, the watchdog and the prewarmer
+   on, 32 trials past a history of 256: the merged report of every
+   process (workers and user scripts) holds no race, no lock-order cycle
+   and no LCK003 finding; the instrumented locks and annotated accesses
+   counted; each GP round the store's spans book launched ``fused_gram``
+   (the workers' traces).
+16. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -1033,7 +1058,11 @@ def phase_hunt(device, plain_round_ms):
 CLI_PRIORS = [f"-x{i}~uniform(0, 1)" for i in range(6)]
 CLI_ALGO = {"n_init": 16, "n_candidates": 16384, "fit_steps": 40, "local_frac": 0.3, "seed": 0}
 CLI_Q = 1024
-CLI_TRIALS = 1040  # one random round of 1024, then a GP round of which 16 are consumed
+CLI_TRIALS = 128  # past a seeded history of CLI_HISTORY: one GP round, 128 of it consumed
+#: The one-worker hunt's history, completed through the library: as many as
+#: its trials were before the depth cut, so that the ``evc`` children's first
+#: rounds still fit 256 rows of family history (``MAIN_SHAPE``).
+CLI_HISTORY = 1024
 CLI_WORKERS = 8
 CLI_WORKER_TRIALS = 1088
 #: The kernel's name in a profiler trace (``ops/csrc/gram.cu``).
@@ -1136,9 +1165,12 @@ def _fetch_trials(storage, name):
     return exp["_id"], storage.fetch_trials(uid=exp["_id"])
 
 
-def run_cli_hunt(tmp, device, q=CLI_Q, max_trials=CLI_TRIALS, algo=CLI_ALGO):
+def run_cli_hunt(tmp, device, q=CLI_Q, max_trials=CLI_TRIALS, algo=CLI_ALGO,
+                 history=CLI_HISTORY):
     """``orion-tpu-torch hunt`` in this process, one worker, on SQLite:
-    ``max_trials`` trials of the user script at ``--pool-size q``, the
+    ``max_trials`` trials of the user script at ``--pool-size q`` past a
+    history of ``history`` completed through the library
+    (:func:`seed_history`), so that its first round is a GP round; the
     kernel's launch shapes counted over the whole call.  Each trial's
     consumption (working dir, files, subprocess, results) and within it the
     subprocess, its reservation and completion and the loop's status reads
@@ -1152,6 +1184,8 @@ def run_cli_hunt(tmp, device, q=CLI_Q, max_trials=CLI_TRIALS, algo=CLI_ALGO):
 
     script, config = write_cli_files(tmp, algo)
     db = os.path.join(tmp, "cli.sqlite")
+    seed_history(create_storage({"type": "sqlite", "path": db}), "cli",
+                 ["-c", config, "--storage-path", db], script, None, device, completed=history)
     samples = {"consume": [], "trial_process": [], "reserve": [], "complete": [], "status": [],
                "produce": []}
     patches = [(Consumer, "consume", "consume"), (Consumer, "_execute_process", "trial_process"),
@@ -1170,7 +1204,7 @@ def run_cli_hunt(tmp, device, q=CLI_Q, max_trials=CLI_TRIALS, algo=CLI_ALGO):
         with _LaunchShapes() as launch_shapes:
             t0 = time.perf_counter()
             rc = cli.main(["hunt", "-n", "cli", "-c", config, "--storage-path", db,
-                           "--pool-size", str(q), "--max-trials", str(max_trials),
+                           "--pool-size", str(q), "--max-trials", str(history + max_trials),
                            "--device", device.type, script, *CLI_PRIORS])
             wall_s = time.perf_counter() - t0
     finally:
@@ -1181,7 +1215,7 @@ def run_cli_hunt(tmp, device, q=CLI_Q, max_trials=CLI_TRIALS, algo=CLI_ALGO):
         raise AssertionError(f"cli hunt: exit code {rc}")
     storage = create_storage({"type": "sqlite", "path": db})
     exp_id, trials = _fetch_trials(storage, "cli")
-    done, values, err = check_cli_trials("cli hunt", trials, max_trials, device)
+    done, values, err = check_cli_trials("cli hunt", trials, history + max_trials, device)
     if launches < 1 or launch_shapes.shapes[MAIN_SHAPE] < 1:
         raise AssertionError(f"cli hunt: fused_gram launched {launches} times "
                              f"({dict(launch_shapes.shapes)})")
@@ -1190,12 +1224,12 @@ def run_cli_hunt(tmp, device, q=CLI_Q, max_trials=CLI_TRIALS, algo=CLI_ALGO):
     produce_ms = [ms for _, ms in samples["produce"]]
     return {
         "trials": len(trials), "completed": len(done), "wall_s": wall_s,
-        "trials_per_s": len(done) / wall_s,
+        "trials_per_s": (len(done) - history) / wall_s,
         "median_ms_per_trial": {k: _median([ms for _, ms in samples[k]])
                                 for k in ("consume", "trial_process", "reserve", "complete")},
         "median_status_ms_per_trial": 2 * _median([ms for _, ms in samples["status"]]),
         "calls": {k: len(v) for k, v in samples.items()},
-        "produce_ms": produce_ms, "gp_round_ms": produce_ms[1:],
+        "history": history, "produce_ms": produce_ms, "gp_round_ms": produce_ms,
         "producer_suggest_ms": suggest_ms,
         "regret": float(values.min()) - GLOBAL_MIN, "objective_max_abs_err": err,
         "fused_gram_launches": launches,
@@ -1416,7 +1450,7 @@ def phase_cli(device, tmp):
 #: with a narrower prior, each branching a child that runs ``EVC_TRIALS``
 #: trials of its own: v2 with ``x0 ~ uniform(0, 0.5)``, v3 with ``x1`` too.
 EVC_NARROWED = (0, 1)
-EVC_TRIALS = 64
+EVC_TRIALS = 32
 EVC_TREE = "cli-v1\n└── cli-v2\n    └── cli-v3\n"
 
 
@@ -1580,7 +1614,12 @@ def phase_evc(device, tmp):
 #: a ``/metrics`` port; (c) the flight recorder's dumps.
 TELEMETRY_ROUNDS = 6
 TELEMETRY_WORKERS = 4
-TELEMETRY_TRIALS = 1088
+TELEMETRY_TRIALS = 64  # past the seeded history and its pending trials
+#: The fleets' store holds ``HISTORY`` completed trials and this many left
+#: pending, as a random round partly run: the workers run them out, then
+#: every worker finds the queue empty at once and pays its own GP round.
+#: Enough that the three spawned workers start before they are gone.
+TELEMETRY_PENDING = 384
 PROM_LINE = re.compile(
     r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*",?)*\})? '
     r'(-?[0-9.eE+-]+|\+Inf|-Inf|NaN)$')
@@ -1703,12 +1742,14 @@ def _scrape(port, until, period=2.0):
 
 
 def run_fleet(tmp, device, telemetry, workers=TELEMETRY_WORKERS, max_trials=TELEMETRY_TRIALS,
-              q=CLI_Q, algo=CLI_ALGO, timeout=400):
-    """``hunt --n-workers 4 --profile`` on a fresh SQLite file with
-    ``telemetry:`` on or off in the config; on, with a free
-    ``metrics_port`` that is scraped while the hunt runs.  Checks the
-    trials, and reads ``fused_gram``'s launches and their shapes from the
-    workers' traces: at least one at ``MAIN_SHAPE``."""
+              q=CLI_Q, algo=CLI_ALGO, timeout=400, pending=TELEMETRY_PENDING):
+    """``hunt --n-workers 4 --profile`` on a SQLite file seeded with
+    ``HISTORY`` completed trials and ``pending`` more left to run
+    (:func:`seed_history`, the experiment created with the algorithm's YAML
+    alone), ``max_trials`` past them, with ``telemetry:`` on or off in the
+    config; on, with a free ``metrics_port`` that is scraped while the hunt
+    runs.  Checks the trials, and reads ``fused_gram``'s launches and their
+    shapes from the workers' traces: at least one at ``MAIN_SHAPE``."""
     import threading
 
     import yaml
@@ -1718,20 +1759,24 @@ def run_fleet(tmp, device, telemetry, workers=TELEMETRY_WORKERS, max_trials=TELE
     run_dir = os.path.join(tmp, "telemetry" if telemetry else "telemetry-off")
     os.makedirs(run_dir)
     unseeded = {k: v for k, v in algo.items() if k != "seed"}
-    script, _ = write_cli_files(run_dir, unseeded)
+    script, algo_config = write_cli_files(run_dir, unseeded)
     port = _free_port() if telemetry else None
     config = os.path.join(run_dir, "telemetry.yaml")
     with open(config, "w") as handle:
         yaml.safe_dump({"telemetry": telemetry, "algorithms": {"tpu_bo": unseeded},
                         **({"metrics_port": port} if telemetry else {})}, handle)
     db, prof = os.path.join(run_dir, "telemetry.sqlite"), os.path.join(run_dir, "profile")
+    history = seed_history(create_storage({"type": "sqlite", "path": db}), "tel",
+                           ["-c", algo_config, "--storage-path", db], script, None, device,
+                           pending=pending)
+    total = HISTORY + pending + max_trials
     done_event, result = threading.Event(), {}
 
     def hunt():
         try:
             result["wall_s"] = run_cohort([(_cli_command(
                 "-n", "tel", "-c", config, "--storage-path", db, "--pool-size", str(q),
-                "--max-trials", str(max_trials), "--n-workers", str(workers), "--profile", prof,
+                "--max-trials", str(total), "--n-workers", str(workers), "--profile", prof,
                 "--device", device.type, script, *CLI_PRIORS), run_dir)], timeout)
         except BaseException as exc:  # re-raised below, in the phase's thread
             result["error"] = exc
@@ -1747,7 +1792,7 @@ def run_fleet(tmp, device, telemetry, workers=TELEMETRY_WORKERS, max_trials=TELE
     storage = create_storage({"type": "sqlite", "path": db})
     exp_id, trials = _fetch_trials(storage, "tel")
     done, values, err = check_cli_trials(f"telemetry fleet ({'on' if telemetry else 'off'})",
-                                         trials, max_trials, device)
+                                         trials, total, device)
     per_worker = read_traces(prof)
     shapes = collections.Counter()
     for w in per_worker:
@@ -1758,6 +1803,7 @@ def run_fleet(tmp, device, telemetry, workers=TELEMETRY_WORKERS, max_trials=TELE
                              f"at {dict(shapes)} (none at {main})")
     return {"telemetry": telemetry, "db": db, "storage": storage, "exp_id": exp_id,
             "trials": trials, "done": done, "values": values, "err": err,
+            "ran": [t for t in done if t.id not in history],
             "wall_s": result["wall_s"], "scrapes": scrapes, "per_worker": per_worker,
             "launches": sum(w["fused_gram_launches"] for w in per_worker),
             "launch_shapes": dict(shapes), "unseeded": unseeded, "run_dir": run_dir}
@@ -1777,7 +1823,9 @@ def run_telemetry_fleet(tmp, device, off_first=False, workers=TELEMETRY_WORKERS,
         runs[telemetry] = run_fleet(tmp, device, telemetry, workers, max_trials)
     on, off = runs[True], runs[False]
     scrapes, run_dir, storage, exp_id = on["scrapes"], on["run_dir"], on["storage"], on["exp_id"]
-    done = on["done"]
+    # The workers' own completions: the seeded history's went through the
+    # library, outside every worker's registry.
+    done = on["ran"]
     cmd = ["--storage-path", on["db"], "-n", "tel"]
 
     rc, body, metrics_ms = _cli_output(["metrics", *cmd])
@@ -1842,13 +1890,14 @@ def run_telemetry_fleet(tmp, device, off_first=False, workers=TELEMETRY_WORKERS,
     names = collections.Counter(s["name"] for s in spans)
 
     def rate(run):
-        return len(run["done"]) / run["wall_s"]
+        return len(run["ran"]) / run["wall_s"]
 
     return {
-        "workers": workers, "q": CLI_Q, "trials": len(on["trials"]), "completed": len(done),
+        "workers": workers, "q": CLI_Q, "history": HISTORY, "pending": TELEMETRY_PENDING,
+        "trials": len(on["trials"]), "completed": len(done),
         "order": ["off", "on"] if off_first else ["on", "off"],
         "wall_s": on["wall_s"], "trials_per_s": rate(on),
-        "off": {"trials": len(off["trials"]), "completed": len(off["done"]),
+        "off": {"trials": len(off["trials"]), "completed": len(off["ran"]),
                 "wall_s": off["wall_s"], "trials_per_s": rate(off),
                 "regret": float(off["values"].min()) - GLOBAL_MIN,
                 "fused_gram_launches": off["launches"], "launch_shapes": off["launch_shapes"],
@@ -1964,9 +2013,9 @@ def phase_telemetry(device, tmp, cli_workers_trials_per_s, fleet_off_first=False
 #: The ``network`` phase: workers over ``orion-tpu-torch db serve`` (one
 #: server, then a replicated two-shard plane), the main path's width.
 NETWORK_WORKERS = 4
-NETWORK_TRIALS = 128  # past the seeded HISTORY
+NETWORK_TRIALS = 64  # past the seeded HISTORY
 SHARD_WORKERS = 2
-SHARD_TRIALS = 128  # past the seeded HISTORY
+SHARD_TRIALS = 64  # past the seeded HISTORY
 #: A synchronous write waits this long for its replica's ack: a GP round
 #: registers q=1024 documents carrying their lineage (~37 MB), which the
 #: replica decodes and applies in seconds (the server's default is 2.0).
@@ -2156,12 +2205,15 @@ def _wire_ms(storage, exp_id, backend):
 HISTORY = 256
 
 
-def seed_history(storage, name, init_args, script, log, device, completed=HISTORY, seed=0):
+def seed_history(storage, name, init_args, script, log, device, completed=HISTORY, seed=0,
+                 pending=0):
     """``init-only -n NAME INIT_ARGS`` with the user arguments a later
     ``hunt`` passes (the script, the priors and ``--log LOG`` if given), so
     that it resumes the experiment, then ``completed`` random trials
     registered and completed through the library on ``storage``: Hartmann6
-    at their points, none left pending.  Returns their ids."""
+    at their points; then ``pending`` more random trials registered and
+    left for the workers, as a random round partly run would leave them.
+    Returns the completed trials' ids."""
     from orion_tpu_torch.benchmarks.functions import hartmann6
     from orion_tpu_torch.core.experiment import build_experiment
     from orion_tpu_torch.core.trial import Result, Trial
@@ -2185,6 +2237,10 @@ def seed_history(storage, name, init_args, script, log, device, completed=HISTOR
     history = {t.id for t in exp.fetch_trials()}
     if len(history) != completed:
         raise AssertionError(f"{name}: {len(history)} trials beside a history of {completed}")
+    if pending:
+        rows = np.random.default_rng(seed + 1).uniform(size=(pending, 6)).astype(np.float32)
+        exp.register_trials([Trial(params={f"/x{i}": float(r[i]) for i in range(6)})
+                             for r in rows])
     return history
 
 
@@ -3435,6 +3491,295 @@ def phase_device_plane(device, tmp):
     return gram.fused_gram.launches
 
 
+#: The ``diagnosis`` phase: the doctor over what the card's rounds produce
+#: and the runtime sanitizer over the device plane's threads, at the main
+#: path's width (``tpu_bo``, 16384 candidates, q=1024).
+DIAGNOSIS_TRIALS = 32  # past the seeded HISTORY: one GP round at q=1024
+DOCTOR_INTERVAL = 2.0  # seconds between the hunt worker's watchdog passes
+#: (b)'s q of each round after the random one: every q bucket in turn, so
+#: that each round has a signature no earlier round had (the fit bucket
+#: grows between the cycles).
+FORK_QS = (8, 16, 32, 64, 128, 256, 512, 1024)
+#: (b)'s first, random, round: 72 points put the GP rounds at a 128-row fit
+#: buffer or more, where every round's pool cross-gram is ``fused_gram``'s.
+FORK_FIRST_Q = 72
+FORK_MAX_ROUNDS = 20
+DOCTOR_SEVERITIES = ("info", "warn", "critical")
+
+
+def _doctor_samples(text):
+    """``orion_tpu_doctor_findings`` samples of one exposition:
+    ``[(rule, severity, value)]``."""
+    out = []
+    for name, value in parse_exposition(text).items():
+        match = re.match(r'^orion_tpu_doctor_findings\{rule="([^"]+)",severity="([^"]+)"\}$',
+                         name)
+        if match:
+            out.append((match.group(1), match.group(2), value))
+    return out
+
+
+def _seeded_store(run_dir, name, device, algo):
+    """The user script, a SQLite file with ``HISTORY`` completed trials of
+    ``name`` (:func:`seed_history`) and the executions log; returns them
+    with the history's ids."""
+    script, algo_config = write_cli_files(run_dir, algo)
+    db, log = os.path.join(run_dir, f"{name}.sqlite"), os.path.join(run_dir, f"{name}.log")
+    from orion_tpu_torch.storage.base import create_storage
+
+    storage = create_storage({"type": "sqlite", "path": db})
+    history = seed_history(storage, name, ["-c", algo_config, "--storage-path", db], script,
+                           log, device)
+    return script, db, log, storage, history
+
+
+def _gp_rounds(storage, exp_id, n_candidates):
+    """The GP rounds the store's spans book (a capture or a replay each),
+    those on ``fused_gram``'s route apart."""
+    from orion_tpu_torch.algo.gp.kernels import _FUSED_MIN_WORK
+
+    rounds = [s for s in storage.fetch_spans(exp_id)
+              if s["name"] in ("suggest_step.dispatch", "suggest_step.capture")]
+    fused = [s for s in rounds
+             if n_candidates * s["args"]["n"] * MAIN_SHAPE[2] >= _FUSED_MIN_WORK]
+    return rounds, fused
+
+
+def run_diagnosis_healthy(run_dir, device, q=CLI_Q, max_trials=DIAGNOSIS_TRIALS,
+                          algo=CLI_ALGO, timeout=300):
+    """(a) One ``hunt`` worker with ``doctor_interval:``, telemetry and a
+    free ``metrics_port``, ``max_trials`` past a seeded history: while it
+    runs, ``/healthz`` must carry a ``doctor`` block and ``/metrics`` the
+    ``orion_tpu_doctor_findings`` family with declared severities only, and
+    this process times watchdog passes over the same store; after it,
+    ``doctor --json`` exits 0 with no critical finding, ``info`` prints a
+    doctor line and ``top --json`` has a doctor block.  The worker's GP
+    rounds launch ``fused_gram`` at the main shape (its trace)."""
+    import threading
+
+    import yaml
+
+    from orion_tpu_torch.core.experiment import ExperimentView, build_experiment
+    from orion_tpu_torch.diagnosis.watch import DoctorWatchdog
+
+    script, db, log, storage, history = _seeded_store(run_dir, "doc", device, algo)
+    port = _free_port()
+    config = os.path.join(run_dir, "doctor.yaml")
+    with open(config, "w") as handle:
+        yaml.safe_dump({"telemetry": True, "metrics_port": port,
+                        "doctor_interval": DOCTOR_INTERVAL,
+                        "algorithms": {"tpu_bo": dict(algo)}}, handle)
+    prof = os.path.join(run_dir, "doctor-profile")
+    done_event, result = threading.Event(), {}
+
+    def hunt():
+        try:
+            result["wall_s"] = run_cohort([(_cli_command(
+                "-n", "doc", "-c", config, "--storage-path", db, "--pool-size", str(q),
+                "--max-trials", str(HISTORY + max_trials), "--profile", prof,
+                "--device", device.type, script, *CLI_PRIORS, "--log", log), run_dir)], timeout)
+        except BaseException as exc:  # re-raised below, in the phase's thread
+            result["error"] = exc
+        finally:
+            done_event.set()
+
+    experiment = ExperimentView(build_experiment(storage, "doc"))
+    watchdog = DoctorWatchdog(experiment, DOCTOR_INTERVAL)
+    healthz, samples, pass_ms = [], [], []
+    thread = threading.Thread(target=hunt)
+    thread.start()
+    while not done_event.is_set():
+        t0 = time.perf_counter()
+        watchdog.tick()
+        pass_ms.append((time.perf_counter() - t0) * 1e3)
+        try:
+            healthz.append(json.loads(_http_get(port, "/healthz")[2]))
+            samples.append(_doctor_samples(_http_get(port, "/metrics")[2]))
+        except OSError:  # the worker's server not up yet, or gone
+            pass
+        done_event.wait(1.0)
+    thread.join()
+    if "error" in result:
+        raise result["error"]
+    fleet = _check_fleet("doc", storage, log, prof, max_trials, device, history)
+    rc, body, doctor_ms = _cli_output(["doctor", "-n", "doc", "--storage-path", db, "--json"])
+    report = json.loads(body)
+    rc_info, info, _ = _cli_output(["info", "-n", "doc", "--storage-path", db])
+    rc_top, top, _ = _cli_output(["top", "-n", "doc", "--storage-path", db, "--json"])
+    doctor_line = [line for line in info.splitlines() if line.startswith("doctor:")]
+    blocks = [h["doctor"] for h in healthz if "doctor" in h]
+    published = [s for s in samples if s]
+    severities = {sev for sample in published for _, sev, _ in sample}
+    out = {"trials": len(fleet["trials"]), "completed": len(fleet["done"]),
+           "wall_s": result["wall_s"], "doctor_exit": rc, "doctor_ms": doctor_ms,
+           "status": report["status"], "critical": report["critical"],
+           "findings": [(f["rule"], f["severity"], f.get("value")) for f in report["findings"]],
+           "watchdog_pass_ms": pass_ms, "median_watchdog_pass_ms": _median(pass_ms),
+           "healthz_doctor": blocks[-1] if blocks else None, "scrapes": len(healthz),
+           "findings_samples": len(published[-1]) if published else 0,
+           "severities": sorted(severities), "info_doctor": doctor_line,
+           "top_doctor": json.loads(top).get("doctor") if rc_top == 0 else None,
+           "fused_gram_launches": fleet["launches"], "launch_shapes": fleet["launch_shapes"]}
+    if (rc != 0 or report["critical"] or not blocks or not published
+            or not severities <= set(DOCTOR_SEVERITIES) or rc_info != 0 or not doctor_line
+            or out["top_doctor"] is None):
+        raise AssertionError(f"diagnosis (a): {out}")
+    return out
+
+
+def run_diagnosis_fork(run_dir, device, qs=FORK_QS, max_rounds=FORK_MAX_ROUNDS):
+    """(b) ``tpu_bo`` at the main path's configuration through an
+    ``ExperimentClient`` on SQLite in this process, telemetry on, each GP
+    round at the next q bucket of ``qs`` (a signature no earlier round
+    had), until the round count and the recaptures pass DX001's bars:
+    ``run_rules(local_snapshot())`` must then hold DX001 as critical, and
+    ``doctor --json`` over the store exit 1 naming it."""
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.client.experiment import ExperimentClient
+    from orion_tpu_torch.compiler_plane import COMPILE_REGISTRY
+    from orion_tpu_torch.core.experiment import build_experiment
+    from orion_tpu_torch.diagnosis import local_snapshot, run_rules
+    from orion_tpu_torch.diagnosis.rules_system import RecaptureStorm
+    from orion_tpu_torch.health import FLIGHT
+    from orion_tpu_torch.storage.base import create_storage
+    from orion_tpu_torch.telemetry import TELEMETRY
+
+    was = TELEMETRY.enabled, FLIGHT.enabled
+    TELEMETRY.reset()
+    FLIGHT.clear()
+    COMPILE_REGISTRY.reset()
+    STEP_GRAPHS.reset()
+    TELEMETRY.enabled = FLIGHT.enabled = True
+    try:
+        db = os.path.join(run_dir, "fork.sqlite")
+        storage = create_storage({"type": "sqlite", "path": db})
+        exp = build_experiment(storage, "fork", priors=HUNT_PRIORS, max_trials=100000,
+                               pool_size=8, algorithms={"tpu_bo": dict(ALGO)}
+                               ).instantiate(seed=0, device=device)
+        client = ExperimentClient(exp)
+        rounds = []
+        for i in range(max_rounds + 1):
+            q = FORK_FIRST_Q if i == 0 else qs[(i - 1) % len(qs)]
+            t0 = time.perf_counter()
+            trials = client.suggest(q)
+            cube = torch.as_tensor(exp.space.params_to_cube([t.params for t in trials]),
+                                   device=exp.algorithm.device)
+            client.observe_all(trials, hartmann6(cube).cpu().numpy().tolist())
+            rounds.append({"q": q, "ms": (time.perf_counter() - t0) * 1e3})
+            counters = TELEMETRY.snapshot()["counters"]
+            recaptures = counters.get("cuda_graph.recaptures", 0)
+            if (len(rounds) >= RecaptureStorm.MIN_ROUNDS and recaptures >= max(
+                    RecaptureStorm.MIN_RETRACES, RecaptureStorm.RETRACES_PER_ROUND * len(rounds))):
+                break
+        client.producer._flush_timings(force_metrics=True)
+        snapshot = local_snapshot()
+        report = run_rules(snapshot)
+        entries = [e for e in COMPILE_REGISTRY.entries() if e.kind == "recapture"]
+        pool_bytes = STEP_GRAPHS.pool_bytes()
+        health = storage.fetch_health(exp)
+    finally:
+        TELEMETRY.reset()
+        FLIGHT.clear()
+        TELEMETRY.enabled, FLIGHT.enabled = was
+    rc, body, doctor_ms = _cli_output(["doctor", "-n", "fork", "--storage-path", db, "--json"])
+    stored = json.loads(body)
+    local = [(f.rule_id, f.severity, f.value) for f in report.findings]
+    result = {"rounds": rounds, "producer_rounds": snapshot.rounds(),
+              "health_records": len(health), "recaptures": len(entries),
+              "recapture_ms": [round(e.seconds * 1e3, 3) for e in entries],
+              "recapture_signatures": [f"fit_bucket={e.fields['fit_bucket']} q={e.fields['q']}"
+                                       for e in entries],
+              "pool_bytes": pool_bytes, "local_findings": local,
+              "doctor_exit": rc, "doctor_ms": doctor_ms,
+              "stored_findings": [(f["rule"], f["severity"], f.get("value"))
+                                  for f in stored["findings"]]}
+    if (("DX001", "critical") not in [(r, s) for r, s, _ in local] or rc != 1
+            or "DX001" not in [r for r, _, _ in result["stored_findings"]]
+            or len(health) < RecaptureStorm.MIN_ROUNDS - 1):
+        raise AssertionError(f"diagnosis (b): {result}")
+    return result
+
+
+def run_diagnosis_tsan(run_dir, device, q=CLI_Q, max_trials=DIAGNOSIS_TRIALS, workers=2,
+                       algo=CLI_ALGO, timeout=400):
+    """(c) ``orion-tpu-torch tsan -- hunt --n-workers 2`` with telemetry,
+    the watchdog and the prewarmer on, ``max_trials`` past a seeded
+    history at q=1024: every process of the run (the workers and each
+    trial's user script) merges into one report, which must hold no race,
+    no lock-order cycle and no LCK003 finding; each GP round the store's
+    spans book launched ``fused_gram`` (the workers' traces)."""
+    import yaml
+
+    algo = dict(algo, prewarm=True)
+    script, db, log, storage, history = _seeded_store(run_dir, "tsan", device, algo)
+    config = os.path.join(run_dir, "tsan.yaml")
+    with open(config, "w") as handle:
+        yaml.safe_dump({"telemetry": True, "doctor_interval": DOCTOR_INTERVAL,
+                        "algorithms": {"tpu_bo": algo}}, handle)
+    prof, report_path = os.path.join(run_dir, "tsan-profile"), os.path.join(run_dir, "tsan.json")
+    argv = [sys.executable, "-m", "orion_tpu_torch.cli", "tsan", "--seed", "0", "--format",
+            "json", "--out", report_path, "--", *_cli_command(
+                "-n", "tsan", "-c", config, "--storage-path", db, "--pool-size", str(q),
+                "--max-trials", str(HISTORY + max_trials), "--n-workers", str(workers),
+                "--profile", prof, "--device", device.type, script, *CLI_PRIORS, "--log", log)]
+    proc = subprocess.Popen(argv, env=dict(os.environ, PYTHONPATH=ROOT), cwd=run_dir,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    t0 = time.perf_counter()
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+    wall_s = time.perf_counter() - t0
+    with open(report_path) as handle:
+        report = json.load(handle)
+    fleet = _check_fleet("tsan", storage, log, prof, max_trials, device, history)
+    rounds, fused = _gp_rounds(storage, fleet["exp_id"], algo["n_candidates"])
+    check = report.get("cross_check") or {}
+    out = {"workers": workers, "q": q, "trials": len(fleet["trials"]),
+           "completed": len(fleet["done"]), "wall_s": wall_s, "exit_code": proc.returncode,
+           "processes": report.get("processes"), "races": report["races"],
+           "lock_order_cycles": report["lock_order_cycles"], "edges": len(report["edges"]),
+           "switches": report["switches"], "instrumented_locks": sum(report["locks"].values()),
+           "lock_ids": len(report["locks"]), "annotated_accesses": report["accesses"],
+           "annotated_cells": len(report["cells"]),
+           "cross_check": {k: len(v) for k, v in check.items()},
+           "lck003": check.get("lck003"), "gp_rounds": len(rounds), "fused_rounds": len(fused),
+           "fused_gram_launches": fleet["launches"], "launch_shapes": fleet["launch_shapes"]}
+    if (proc.returncode != 0 or report["races"] or report["lock_order_cycles"]
+            or check.get("lck003") or check.get("confirmed_static_cycles")
+            or fleet["launches"] != len(fused) or not fused):
+        raise AssertionError(f"diagnosis (c): {out}\n{err[-3000:]}")
+    return out
+
+
+def phase_diagnosis(device, tmp):
+    """The doctor and the sanitizer on the card: (a) a healthy hunt worker
+    with its watchdog, (b) a provoked signature fork, DX001 from the card's
+    own recaptures, (c) ``tsan`` over a two-worker hunt.  Returns
+    ``fused_gram``'s launches in each leg."""
+    from orion_tpu_torch.ops import gram
+
+    run_dir = os.path.join(tmp, "diagnosis")
+    os.makedirs(run_dir)
+    healthy = run_diagnosis_healthy(run_dir, device)
+    emit("diagnosis", leg="healthy", **healthy)
+    gram.fused_gram.launches = 0
+    fork = run_diagnosis_fork(run_dir, device)
+    fork_launches = gram.fused_gram.launches
+    emit("diagnosis", leg="fork", fused_gram_launches=fork_launches, **fork)
+    if fork_launches != fork["recaptures"]:
+        raise AssertionError(f"diagnosis (b): {fork_launches} fused_gram launches in "
+                             f"{fork['recaptures']} GP rounds")
+    tsan = run_diagnosis_tsan(run_dir, device)
+    emit("diagnosis", leg="tsan", **tsan)
+    return {"healthy": healthy["fused_gram_launches"], "fork": fork_launches,
+            "tsan": tsan["fused_gram_launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3468,7 +3813,8 @@ def main():
                                       telemetry_trials_per_s)
         day2_launches = run("day2", phase_day2, device, tmp, plane)
         device_plane_launches = run("device_plane", phase_device_plane, device, tmp)
-    emit("seconds", **seconds)
+        diagnosis_launches = run("diagnosis", phase_diagnosis, device, tmp)
+    emit("seconds", **seconds, phases=sum(seconds.values()))
 
     def case(shape):
         return next(c for c in cases if (c["m"], c["n"], c["d"]) == shape
@@ -3483,7 +3829,8 @@ def main():
         "launches": (launches["fused_gram"] + asha_bo_launches + hunt_launches
                      + sum(cli_launches.values()) + evc_launches
                      + sum(telemetry_launches.values()) + sum(network_launches.values())
-                     + sum(day2_launches.values()) + device_plane_launches),
+                     + sum(day2_launches.values()) + device_plane_launches
+                     + sum(diagnosis_launches.values())),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
                              "hunt": hunt_launches, "cli": sum(cli_launches.values()),
                              "cli_runs": cli_launches, "evc": evc_launches,
@@ -3492,7 +3839,9 @@ def main():
                              "network": sum(network_launches.values()),
                              "network_runs": network_launches,
                              "day2": sum(day2_launches.values()), "day2_runs": day2_launches,
-                             "device_plane": device_plane_launches},
+                             "device_plane": device_plane_launches,
+                             "diagnosis": sum(diagnosis_launches.values()),
+                             "diagnosis_runs": diagnosis_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -9,3 +9,14 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
+
+# Opt-in runtime concurrency sanitizer (`orion-tpu-torch tsan -- <cmd>` sets
+# the env in the child): instrumentation must patch the threading factories
+# BEFORE the subsystem modules create their locks, so the hook lives at
+# package import.  Without the env var this costs one dict lookup.
+import os as _os
+
+if _os.environ.get("ORION_TPU_TSAN", "").strip().lower() in ("1", "on", "true", "yes"):
+    from orion_tpu_torch.analysis.sanitizer import TSAN as _TSAN
+
+    _TSAN.enable_from_env()

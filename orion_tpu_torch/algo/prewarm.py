@@ -33,6 +33,7 @@ import threading
 import time
 import weakref
 
+from orion_tpu_torch.analysis.sanitizer import TSAN
 from orion_tpu_torch.algo.history import _next_pow2
 from orion_tpu_torch.health import FLIGHT
 from orion_tpu_torch.telemetry import TELEMETRY
@@ -51,6 +52,7 @@ def completed_prewarm_count():
     """Monotonic count of finished prewarm attempts (success or failure),
     process-wide."""
     with _completed_lock:
+        TSAN.read("prewarm._completed_count")
         return _completed_count
 
 
@@ -75,6 +77,7 @@ def prewarm_inventory():
 def _note_prewarm_completed():
     global _completed_count
     with _completed_lock:
+        TSAN.write("prewarm._completed_count")
         _completed_count += 1
 
 
@@ -140,6 +143,7 @@ class BucketPrewarmer:
         """Run ``capture_fn`` on a background thread unless ``key`` was
         already started.  Returns True when a new prewarm was launched."""
         with self._lock:
+            TSAN.write("BucketPrewarmer._threads", self)
             if key in self._started:
                 return False
             self._started.add(key)
@@ -163,6 +167,7 @@ class BucketPrewarmer:
         finally:
             _note_prewarm_completed()
             with self._lock:
+                TSAN.write("BucketPrewarmer._threads", self)
                 self._completed += 1
         TELEMETRY.count("cuda_graph.prewarms")
         TELEMETRY.record_span("cuda_graph.prewarm.capture", start=t0)
@@ -172,11 +177,13 @@ class BucketPrewarmer:
     def started_count(self):
         """Distinct signatures this instance has launched."""
         with self._lock:
+            TSAN.read("BucketPrewarmer._threads", self)
             return len(self._started)
 
     def completed_count(self):
         """Prewarm attempts THIS instance finished (success or failure)."""
         with self._lock:
+            TSAN.read("BucketPrewarmer._threads", self)
             return self._completed
 
     def failed_count(self):
@@ -197,4 +204,5 @@ class BucketPrewarmer:
 
     def _thread_snapshot(self):
         with self._lock:
+            TSAN.read("BucketPrewarmer._threads", self)
             return list(self._threads.values())

@@ -11,9 +11,10 @@ its static input buffers (the draws, x, y, mask, best_x, the warm hypers and
 tr_length; made before the capture and outside the graph pool), its static
 outputs, and the ``fused_gram`` launches its capture recorded.  A miss runs
 three things on the step's stream: an eager warm-up round (this round's
-answer; it also builds the kernel library, fills ``fused_gram``'s occupancy
-caches and creates the cuBLAS and cuSOLVER handles and workspaces, none of
-which may happen inside a capture), the capture, and the instantiation.  A
+answer; it also fills ``fused_gram``'s occupancy caches and creates the
+cuBLAS and cuSOLVER handles and workspaces, none of which may happen inside
+a capture), the capture, and the instantiation.  The kernel library is
+built and loaded before the lock is taken (``gram.ensure_loaded``).  A
 capture or instantiation that fails raises to the caller: there is no eager
 fallback.  A hit copies the inputs into the static buffers, replays, and
 copies the rows and every leaf of the GPState out of the static outputs.
@@ -27,7 +28,11 @@ two graphs of the pool never run at once and each replay's outputs are read
 before the next replay reuses their memory: one lock covers every capture
 (a prewarm's included) and every replay with its copy-out, and all of them
 run on the one step stream.  The next round's warm hypers come from the
-copy, never from a static output.
+copy, never from a static output.  Every access to the cache and to the
+pool's memory is annotated for the concurrency sanitizer
+(``StepGraphs._entries``, ``StepGraphs._pool``): under ``orion-tpu-torch
+tsan`` a round and a prewarm capture that touched either without the lock
+between them would report a race.
 
 On the CPU (the caller named it) an entry only marks the signature as seen
 and the eager round runs: the signature bookkeeping, and with it the
@@ -48,6 +53,7 @@ from typing import NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
+from orion_tpu_torch.analysis.sanitizer import TSAN
 from orion_tpu_torch.ops import gram
 
 
@@ -108,23 +114,28 @@ class StepGraphs:
     # --- bookkeeping -------------------------------------------------------
     def has(self, device, signature):
         with self.lock:
+            TSAN.read("StepGraphs._entries", self)
             return (_device_key(device), signature) in self._entries
 
     def entries(self):
         """``[(device, signature, entry), ...]`` in capture order."""
         with self.lock:
+            TSAN.read("StepGraphs._entries", self)
             return [(dev, sig, entry) for (dev, sig), entry in self._entries.items()]
 
     def captured_count(self):
         """Captured graphs (CPU markers excluded): devmem's counterpart of
         the reference's ``memory.fused_cache_entries``."""
         with self.lock:
+            TSAN.read("StepGraphs._entries", self)
             return sum(1 for entry in self._entries.values() if entry.graph is not None)
 
     @property
     def pool(self):
         """The pool the next capture records into (None before the first)."""
-        return self._pools[-1] if self._pools else None
+        with self.lock:
+            TSAN.read("StepGraphs._pool", self)
+            return self._pools[-1] if self._pools else None
 
     def pool_bytes(self):
         """The reserved bytes of the cache's pools, summed over the
@@ -140,14 +151,17 @@ class StepGraphs:
 
     def last_pool_bytes(self):
         """The pool's bytes as the newest capture left them (no allocator
-        walk: safe to read from a metrics sampler while a capture runs)."""
+        walk: a metrics sampler's read; it waits out a capture in flight)."""
         with self.lock:
+            TSAN.read("StepGraphs._entries", self)
             sizes = [e.pool_bytes for e in self._entries.values() if e.graph is not None]
         return max(sizes) if sizes else 0
 
     def reset(self):
         """Drop every entry and the pool (tests; a fresh measurement)."""
         with self.lock:
+            TSAN.write("StepGraphs._entries", self)
+            TSAN.write("StepGraphs._pool", self)
             self._entries = {}
             self._pools = []
 
@@ -164,16 +178,21 @@ class StepGraphs:
         Returns ``(out, entry, missed)``."""
         device = arrays[1].device
         key = (_device_key(device), signature)
+        if device.type == "cuda":
+            gram.ensure_loaded()
         with self.lock:
+            TSAN.read("StepGraphs._entries", self)
             entry = self._entries.get(key)
             if device.type != "cuda":
                 missed = entry is None
                 if missed:
+                    TSAN.write("StepGraphs._entries", self)
                     entry = self._entries[key] = _CPU_MARKER
                 return fn(*arrays, **statics), entry, missed
             if entry is not None:
                 return self._replay(entry, arrays, device), entry, False
             out, entry = self._capture(fn, arrays, statics, device)
+            TSAN.write("StepGraphs._entries", self)
             self._entries[key] = entry
             return out, entry, True
 
@@ -183,19 +202,24 @@ class StepGraphs:
         or None when the signature is already captured."""
         device = arrays[1].device
         key = (_device_key(device), signature)
+        if device.type == "cuda":
+            gram.ensure_loaded()
         with self.lock:
+            TSAN.read("StepGraphs._entries", self)
             if key in self._entries:
                 return None
             if device.type != "cuda":
                 entry = _CPU_MARKER
             else:
                 _, entry = self._capture(fn, arrays, statics, device)
+            TSAN.write("StepGraphs._entries", self)
             self._entries[key] = entry
             return entry
 
     def _capture(self, fn, arrays, statics, device):
         """Warm-up round, capture and instantiation on the step stream; the
         lock is held.  Returns ``(warm-up output, entry)``."""
+        TSAN.write("StepGraphs._pool", self)
         if not self._pools:
             self._pools.append(torch.cuda.graph_pool_handle())
         pool = self._pools[-1]
@@ -239,6 +263,7 @@ class StepGraphs:
     def _replay(self, entry, arrays, device):
         """Inputs in, replay, rows and state out — all on the step stream,
         under the lock."""
+        TSAN.write("StepGraphs._pool", self)  # the replay rewrites the static outputs
         stream = self._stream(device)
         current = torch.cuda.current_stream(device)
         stream.wait_stream(current)

@@ -2,8 +2,8 @@
 ``orion_tpu/cli/base.py``, with the ``--all`` fleet helpers over every
 experiment and the sharded topology; the serve-fleet probe waits for the
 gateway, ROADMAP queue A item 8).  ``load_cli_config`` layers the
-``telemetry:`` and ``metrics_port:`` keys onto the process, as the
-reference does.
+``telemetry:``, ``metrics_port:`` and ``doctor_interval:`` keys onto the
+process, as the reference does.
 
 Capability parity: reference `src/orion/core/cli/base.py` — the common
 ``-n/--name``, ``--version``, ``-c/--config``, ``--debug`` group plus the
@@ -108,8 +108,6 @@ def load_cli_config(args):
             "type": _storage_type_for_path(args.storage_path),
             "path": args.storage_path,
         }
-    # resolve_config raises for `doctor_interval:` (the diagnosis watchdog,
-    # ROADMAP queue A item 9).
     config = resolve_config(file_config, cmd_config, storage_override)
     # `telemetry:` in any config layer flips the process-wide registry AND
     # the flight recorder (one switch for the whole observability layer); a
@@ -133,6 +131,15 @@ def load_cli_config(args):
     if config.get("metrics_port") is not None:
         os.environ.setdefault(
             "ORION_TPU_METRICS_PORT", str(int(config["metrics_port"]))
+        )
+    # `doctor_interval:` rides the same channel as metrics_port: resolved
+    # to the env spelling (so `hunt --n-workers` children inherit it) and
+    # STARTED only where a worker loop runs (workon) — a read-only
+    # command must not spin a diagnosis thread just because the config
+    # names it.
+    if config.get("doctor_interval") is not None:
+        os.environ.setdefault(
+            "ORION_TPU_DOCTOR_INTERVAL", str(float(config["doctor_interval"]))
         )
     return config
 

@@ -5,10 +5,9 @@ Capability parity: reference `src/orion/core/cli/info.py` — sections for
 commandline, config, algorithm, space, metadata, refers (EVC lineage), and
 stats, plus the producer's timings, the merged telemetry and health
 snapshots with each snapshot's host/device ratio against the host budget,
-and the compiler plane's digest (CUDA-graph captures).  The sections that
-read parts the port does not have yet print one line naming their ROADMAP
-queue A item instead of their body: the doctor (item 9), the serve fleet
-(item 8).
+the compiler plane's digest (CUDA-graph captures), and the doctor's
+verdict.  The serve fleet's section, a part the port does not have yet,
+prints one line naming its ROADMAP queue A item (8) instead of its body.
 """
 
 import time
@@ -25,8 +24,7 @@ from orion_tpu_torch.core.producer import Producer
 #: reference's ``cli/top.py::STALE_AFTER``).
 STALE_AFTER = 3.0 * Producer.METRICS_FLUSH_INTERVAL
 
-#: One line each for the sections whose parts are not ported yet.
-DOCTOR_NOT_PORTED = "not ported yet: the doctor is ROADMAP queue A item 9"
+#: One line for the section whose part is not ported yet.
 SERVE_NOT_PORTED = "serve: not ported yet (the serve fleet is ROADMAP queue A item 8)"
 
 
@@ -125,9 +123,32 @@ def format_info(experiment, per_worker=False):
         out.append(_section("Health"))
         out.extend(health)
 
-    out.append(_section("Doctor"))
-    out.append(DOCTOR_NOT_PORTED)
+    doctor = _doctor_line(experiment, metrics_docs, health_docs)
+    if doctor:
+        out.append(_section("Doctor"))
+        out.append(doctor)
     return "\n".join(out) + "\n"
+
+
+def _doctor_line(experiment, metrics_docs, health_docs):
+    """The diagnosis badge (orion_tpu_torch.diagnosis): one line leading
+    with the verdict, naming the firing rules — `orion-tpu-torch doctor` is
+    the full report.  Reads the docs format_info already fetched.  Guarded
+    like the telemetry/health sections."""
+    if metrics_docs is None and health_docs is None:
+        # Both fetches failed: no data is not "healthy" — drop the badge
+        # rather than print an OK verdict over nothing.
+        return None
+    try:
+        from orion_tpu_torch.cli.top import _doctor_block, doctor_badge
+
+        return doctor_badge(
+            _doctor_block(
+                experiment, metrics_docs or [], health_docs or [], time.time()
+            )
+        )
+    except Exception:
+        return None
 
 
 def _fetch_guarded(experiment, op):

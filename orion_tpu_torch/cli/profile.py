@@ -25,10 +25,13 @@ This command merges them back into:
 ``--capture DIR`` runs the local registry's FLOP-count pass (an eager
 round per signature) under the shared
 :func:`~orion_tpu_torch.compiler_plane.profiler_capture`, the same helper
-``hunt --profile`` uses, writing ``DIR/trace-<pid>.json``.
+``hunt --profile`` uses, writing ``DIR/trace-<pid>.json``; it traces the
+card unless ``--device cpu`` is given, and exits 1 where no card is
+present, as ``hunt`` does.
 """
 
 import json
+import sys
 
 from orion_tpu_torch.cli.base import add_experiment_args, build_from_args
 
@@ -49,6 +52,13 @@ def add_subparser(subparsers):
         default=None,
         help="run the local registry's FLOP-count pass under a torch.profiler "
         "trace written to DIR (the same capture helper as `hunt --profile`)",
+    )
+    parser.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="device the --capture trace records (default cuda; the command "
+        "fails where no CUDA device is present unless cpu is given)",
     )
     parser.set_defaults(func=main)
     return parser
@@ -149,17 +159,18 @@ def _merged_metrics(experiment):
     return merged.get("counters") or {}, merged.get("gauges") or {}
 
 
-def _local_registry_block(capture_dir):
+def _local_registry_block(capture_dir, device):
     """The in-process registry summary — empty unless THIS process
     captured rounds.  With ``capture_dir``, the analysis pass (an eager
-    round per signature) runs under the shared profiler capture."""
+    round per signature) runs under the shared profiler capture of
+    ``device``."""
     from orion_tpu_torch.compiler_plane import COMPILE_REGISTRY, profiler_capture
 
     summary = COMPILE_REGISTRY.summary()
     if not summary["compiles"] and capture_dir is None:
         return None
     if capture_dir is not None:
-        with profiler_capture(capture_dir):
+        with profiler_capture(capture_dir, device):
             analysis = COMPILE_REGISTRY.analyze_all()
     else:
         analysis = COMPILE_REGISTRY.analyze_all()
@@ -169,6 +180,15 @@ def _local_registry_block(capture_dir):
 
 
 def main(args):
+    device = None
+    if args.capture is not None:
+        from orion_tpu_torch.device import resolve_device
+
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as exc:
+            print(f"ERROR: {exc}", file=sys.stderr)
+            return 1
     experiment, _parser = build_from_args(
         args, need_user_args=False, allow_create=False, view=True
     )
@@ -179,7 +199,7 @@ def main(args):
     compiles = _compile_rows(spans)
     retraces = _retrace_rows(spans)
     counters, gauges = _merged_metrics(experiment)
-    registry = _local_registry_block(args.capture)
+    registry = _local_registry_block(args.capture, device)
     if args.json:
         print(
             json.dumps(

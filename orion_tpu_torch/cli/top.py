@@ -10,10 +10,10 @@ regret-curve sparkline across the fleet.  ``--json`` is the one-shot
 scripting mode: print one JSON snapshot and exit; ``--all`` one row per
 experiment.
 
-Left out, each with its ROADMAP queue A item: the doctor's badge and the
-snapshot's ``doctor`` block (item 9; the block is None, as the reference's
-is when its diagnosis fails), the serve-gateway probe of ``--all`` (item 8;
-a configured ``serve`` section prints one line naming it).
+The doctor's badge leads each frame, from the snapshot's ``doctor`` block
+(the rule catalog of ``orion_tpu_torch.diagnosis`` over the docs the frame
+already fetched).  Left out: the serve-gateway probe of ``--all`` (ROADMAP
+queue A item 8; a configured ``serve`` section prints one line naming it).
 """
 
 import json
@@ -277,9 +277,10 @@ def snapshot_top(experiment, now=None):
             else None
         )
 
-    # The doctor's verdict is ROADMAP queue A item 9: None, as the
-    # reference's block is when its diagnosis cannot run.
-    doctor = None
+    # Doctor badge (orion_tpu_torch.diagnosis): the same joined channels
+    # this snapshot already fetched, run through the diagnosis rule catalog
+    # — the dashboard leads with the verdict, not just the raw numbers.
+    doctor = _doctor_block(experiment, metrics_docs, health_docs, now)
 
     # Compiler-plane gauges, MAX-merged across workers (the headroom line
     # cares about the worst plan anywhere in the fleet).
@@ -306,6 +307,40 @@ def snapshot_top(experiment, now=None):
     }
 
 
+def _doctor_block(experiment, metrics_docs, health_docs, now):
+    """Evaluate the doctor rules over the docs the snapshot already
+    fetched (no second storage pass per frame); degrades to None rather
+    than ever failing a dashboard frame."""
+    try:
+        from orion_tpu_torch.diagnosis import Snapshot, run_rules
+        from orion_tpu_torch.diagnosis.snapshot import probe_replication
+        from orion_tpu_torch.telemetry import merge_snapshots
+
+        snapshot = Snapshot(
+            metrics=merge_snapshots(metrics_docs),
+            per_worker=metrics_docs,
+            health=health_docs,
+            replication=probe_replication(experiment.storage),
+            heartbeat=getattr(experiment, "heartbeat", None),
+            stale_after=STALE_AFTER,
+            now=now,
+        )
+        report = run_rules(snapshot)
+        return {
+            **report.summary(),
+            "findings": [
+                {
+                    "rule": f.rule_id,
+                    "severity": f.severity,
+                    "message": f.message,
+                }
+                for f in report.findings
+            ],
+        }
+    except Exception:  # pragma: no cover - a frame must render regardless
+        return None
+
+
 def doctor_badge(doctor):
     """One-line doctor verdict for the top/info headers."""
     if not doctor:
@@ -318,7 +353,7 @@ def doctor_badge(doctor):
     return (
         f"doctor: {doctor['status'].upper()} "
         f"(critical: {doctor['critical']}, warn: {doctor['warn']}, "
-        f"info: {doctor['info']}) [{rules}]"
+        f"info: {doctor['info']}) [{rules}] — see `orion-tpu-torch doctor`"
     )
 
 

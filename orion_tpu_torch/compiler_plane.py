@@ -54,6 +54,7 @@ import sys
 import threading
 from contextlib import contextmanager
 
+from orion_tpu_torch.analysis.sanitizer import TSAN
 from orion_tpu_torch.health import FLIGHT
 from orion_tpu_torch.telemetry import TELEMETRY
 
@@ -207,6 +208,7 @@ class CompileRegistry:
             return None
         entry = _Entry(family, fields, seconds, kind, analysis_fn, stats)
         with self._lock:
+            TSAN.write("CompileRegistry._entries", self)
             self._entries.append(entry)
         TELEMETRY.count("cuda_graph.captures")
         TELEMETRY.record_span(
@@ -225,6 +227,7 @@ class CompileRegistry:
                                     analysis_fn=analysis_fn, stats=stats)
         if entry is not None:
             with self._lock:
+                TSAN.write("CompileRegistry._entries", self)
                 self._warmed.setdefault(family, set()).add(_fields_key(entry.fields))
         return entry
 
@@ -242,6 +245,7 @@ class CompileRegistry:
             return None
         entry = _Entry(family, fields, seconds, "recapture", analysis_fn, stats)
         with self._lock:
+            TSAN.write("CompileRegistry._entries", self)
             nearest = None
             nearest_diff = None
             for prior in reversed(self._entries):
@@ -303,6 +307,7 @@ class CompileRegistry:
         ``{"analyzed", "skipped"}`` so a caller that bounds the work
         (``limit``) can report the cap."""
         with self._lock:
+            TSAN.read("CompileRegistry._entries", self)
             pending = [
                 e for e in self._entries
                 if e.analysis_fn is not None and (families is None or e.family in families)
@@ -336,6 +341,7 @@ class CompileRegistry:
 
     def _apply_cost(self, family, key, cost):
         with self._lock:
+            TSAN.write("CompileRegistry._entries", self)
             for entry in self._entries:
                 if entry.family == family and _fields_key(entry.fields) == key:
                     entry.cost = cost
@@ -358,12 +364,14 @@ class CompileRegistry:
 
     def entries(self, family=None):
         with self._lock:
+            TSAN.read("CompileRegistry._entries", self)
             return [e for e in self._entries if family is None or e.family == family]
 
     def summary(self):
         """The JSON-able digest: totals and the per-plan table, which
         ``profile``'s local block renders."""
         with self._lock:
+            TSAN.read("CompileRegistry._entries", self)
             entries = list(self._entries)
             retraces = self._retraces
             attributed = self._attributed
@@ -395,6 +403,7 @@ class CompileRegistry:
     def reset(self):
         """Tests only — the registry is process-wide state."""
         with self._lock:
+            TSAN.write("CompileRegistry._entries", self)
             self._entries = []
             self._warmed = {}
             self._cost_cache = {}
@@ -414,14 +423,17 @@ def profiler_capture(directory, device=None, span=None):
     trace), ``profile --capture DIR`` its analysis pass.  Writes
     ``DIR/trace-<pid>.json`` (a Chrome trace) also when the body raises —
     the trace of a failed run is the one most worth reading — and prints
-    the same line for both."""
-    import torch
+    the same line for both.  ``device`` resolves as every entry point's
+    does (:func:`orion_tpu_torch.device.resolve_device`): None means
+    ``cuda`` and raises where no card is present, so a host without one
+    never writes a CPU-only trace in place of the card's."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    from orion_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
     activities = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
+    if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"trace-{os.getpid()}.json")

@@ -8,11 +8,8 @@ line**, with the worker knobs (`heartbeat`, `max_broken`, `max_idle_time`)
 and storage selection (`ORION_DB_TYPE` / `ORION_DB_ADDRESS` env overrides)
 of the reference's global Configuration object.
 
-``telemetry`` and ``metrics_port`` resolve as in the reference (the CLI
-layers them onto the process, ``cli/base.py``).  ``doctor_interval`` starts
-the reference's diagnosis watchdog, which is not ported yet (ROADMAP queue
-A item 9): a non-null value in any layer raises
-:class:`NotImplementedError` rather than being ignored.
+``telemetry``, ``metrics_port`` and ``doctor_interval`` resolve as in the
+reference (the CLI layers them onto the process, ``cli/base.py``).
 """
 
 import os
@@ -119,9 +116,12 @@ DEFAULTS = {
     # server.  Resolved to ORION_TPU_METRICS_PORT so that `hunt
     # --n-workers` children inherit it.
     "metrics_port": None,
-    # The reference's diagnosis watchdog interval: the watchdog is not
-    # ported yet, so resolve_config raises when any layer sets it (ROADMAP
-    # queue A item 9).
+    # Self-diagnosis watchdog (orion_tpu_torch.diagnosis): a positive
+    # number of seconds makes every workon loop run the doctor rule
+    # catalog at that interval, publishing findings as flight.alert events
+    # + doctor.findings.* gauges; None = no watchdog.  Resolved to
+    # ORION_TPU_DOCTOR_INTERVAL so that `hunt --n-workers` children
+    # inherit it.
     "doctor_interval": None,
     # Suggest gateway: a worker-level knob, never part of the stored
     # experiment identity.  None = local algorithm instance (the default);
@@ -179,10 +179,6 @@ def _env_config():
     return out
 
 
-#: Keys of the reference that start a part the port does not have yet.
-_UNPORTED_KEYS = ("doctor_interval",)
-
-
 def merge_configs(*configs):
     """Deep merge, later wins; None values never override (reference
     `resolve_config.py:195-246`)."""
@@ -209,10 +205,4 @@ def resolve_config(file_config=None, cmd_config=None, storage_override=None):
     )
     if storage_override:
         config["storage"] = storage_override
-    unported = [key for key in _UNPORTED_KEYS if config.get(key) is not None]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: the diagnosis watchdog is not ported yet "
-            "(ROADMAP queue A item 9)"
-        )
     return config

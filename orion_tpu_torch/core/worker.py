@@ -12,9 +12,10 @@ Observability, as in the reference: the worker's ``/metrics`` +
 ``/healthz`` server starts with the loop when ``ORION_TPU_METRICS_PORT``
 (or the ``metrics_port:`` config key) asks for one; a crash dumps the
 flight recorder's ring next to the process (``flight-<name>-<pid>.jsonl``);
-and the loop's end flushes the producer's last spans and a final metrics
-snapshot.  Left out: the diagnosis watchdog (``doctor_interval``), which
-comes with the diagnosis package (ROADMAP queue A item 9).
+the doctor's watchdog runs beside the loop when ``ORION_TPU_DOCTOR_INTERVAL``
+(or the ``doctor_interval:`` config key) asks for one; and the loop's end
+stops it and flushes the producer's last spans and a final metrics
+snapshot.
 """
 
 import io
@@ -89,6 +90,16 @@ def workon(
     from orion_tpu_torch.metrics import ensure_worker_metrics_server
 
     ensure_worker_metrics_server()
+    # Self-diagnosis watchdog (orion_tpu_torch.diagnosis): when the
+    # ORION_TPU_DOCTOR_INTERVAL env var (or the `doctor_interval:` config
+    # key, resolved to the same spelling by cli/base.py) asks for one, a
+    # daemon thread periodically joins this experiment's telemetry planes,
+    # evaluates the doctor rule catalog, and publishes findings as
+    # `flight.alert` events + the doctor.findings.* gauges the /metrics
+    # and /healthz planes export.  None when not requested; never raises.
+    from orion_tpu_torch.diagnosis.watch import maybe_start_watchdog
+
+    watchdog = maybe_start_watchdog(experiment)
     producer = Producer(experiment, max_idle_time=max_idle_time)
     consumer = Consumer(
         experiment, cmdline_parser, heartbeat_interval=heartbeat_interval
@@ -106,6 +117,8 @@ def workon(
             log.error("worker crashed; flight record written to %s", path)
         raise
     finally:
+        if watchdog is not None:
+            watchdog.stop()
         # Final telemetry flush: the last round's timing samples, spans and
         # metrics (the closing producer.round span included) would
         # otherwise die with the process.  Fire-and-forget by contract;

@@ -45,6 +45,7 @@ import os
 import threading
 import time
 
+from orion_tpu_torch.analysis.sanitizer import TSAN
 from orion_tpu_torch.telemetry import TELEMETRY
 
 log = logging.getLogger(__name__)
@@ -96,6 +97,7 @@ def sample_memory(force=False):
     global _last_sample
     now = time.monotonic()
     with _lock:
+        TSAN.write("devmem._state")
         if not force and now - _last_sample < SAMPLE_INTERVAL:
             return False
         _last_sample = now

@@ -27,9 +27,9 @@ Contract shared with the telemetry registry: emission must never raise
 into a hot path, and the DISABLED path must not allocate — call sites
 building args dicts guard on ``FLIGHT.enabled``.
 
-Left out: the reference's dump header carries the doctor's last verdict
-and its ring lock is annotated for the concurrency sanitizer; both belong
-to ROADMAP queue A item 9.
+The dump header carries the doctor's last published verdict, and the
+ring's accesses are annotated for the concurrency sanitizer
+(``orion-tpu-torch tsan``), as in the reference.
 """
 
 import json
@@ -39,6 +39,10 @@ import time
 import traceback
 
 import numpy as np
+
+# Annotated-cell hooks for the runtime concurrency sanitizer
+# (orion-tpu-torch tsan) — same disabled-path cost discipline as recording.
+from orion_tpu_torch.analysis.sanitizer import TSAN
 
 _ENABLE_VALUES = ("1", "on", "true", "yes")
 
@@ -129,6 +133,7 @@ class FlightRecorder:
             if args:
                 event["args"] = dict(args)
             with self._lock:
+                TSAN.write("FlightRecorder._ring", self)
                 self._ring[self._seq % self._capacity] = event
                 self._seq += 1
         except Exception:  # pragma: no cover - must never raise into hot path
@@ -137,6 +142,7 @@ class FlightRecorder:
     def events(self):
         """Every event currently in the ring, oldest first."""
         with self._lock:
+            TSAN.read("FlightRecorder._ring", self)
             start = max(0, self._seq - self._capacity)
             return [self._ring[i % self._capacity] for i in range(start, self._seq)]
 
@@ -145,6 +151,7 @@ class FlightRecorder:
         (the producer's storage-mirror channel; wraparound between drains
         drops the overwritten oldest, by design)."""
         with self._lock:
+            TSAN.write("FlightRecorder._ring", self)  # advances the drain cursor
             start = max(self._drained, self._seq - self._capacity)
             out = [self._ring[i % self._capacity] for i in range(start, self._seq)]
             self._drained = self._seq
@@ -152,6 +159,7 @@ class FlightRecorder:
 
     def clear(self):
         with self._lock:
+            TSAN.write("FlightRecorder._ring", self)
             self._ring = [None] * self._capacity
             self._seq = 0
             self._drained = 0
@@ -181,10 +189,17 @@ class FlightRecorder:
                 "events": len(events) + len(extra_events or ()),
                 "enabled": self.enabled,
             }
-            # The reference adds the doctor's last verdict here ("doctor");
-            # the diagnosis package is ROADMAP queue A item 9, so the port's
-            # header goes without it, as the reference's does when that
-            # import fails.
+            # The doctor's last published verdict (orion_tpu_torch.diagnosis)
+            # rides the header: a crash dump that opens with "status:
+            # critical, DX021 firing" starts the post-mortem one step
+            # ahead of the raw event ring.  evaluate_local=False — a
+            # crash path must not pay a fresh diagnosis pass.
+            try:
+                from orion_tpu_torch.diagnosis import doctor_summary
+
+                header["doctor"] = doctor_summary(evaluate_local=False)
+            except Exception:  # pragma: no cover - dumps must not fail
+                pass
             handle.write(json.dumps(header) + "\n")
             for event in events:
                 handle.write(json.dumps(event) + "\n")

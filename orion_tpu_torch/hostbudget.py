@@ -8,8 +8,8 @@ The consumers read the SAME knob so they can never drift apart:
   whose mean ``producer.round`` exceeds ``1 + F`` times its mean
   ``device.dispatch`` window (the round CONTAINS the device window, so a
   host tax of F x device makes the round (1+F) x device);
-- in the reference, also ``bench.py``'s host-budget check and the doctor's
-  DX004 rule (the doctor is ROADMAP queue A item 9 of the port).
+- the doctor's DX004 rule (``diagnosis/rules_system.py``); in the
+  reference, also ``bench.py``'s host-budget check.
 
 ``ORION_TPU_HOST_BUDGET_FACTOR`` overrides everywhere at once.
 """

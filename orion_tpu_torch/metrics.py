@@ -31,13 +31,10 @@ scrape configuration reads either package's workers.
 
 Each scrape refreshes the device-memory gauges (``devmem.sample_memory``)
 and the compiler plane's (``COMPILE_REGISTRY.publish_gauges``), as in the
-reference.  Left out, with the ROADMAP queue A item that brings it:
-
-- the doctor: ``doctor.findings.<RULE>`` gauges still export as one
-  labelled family, but every rule's severity reads ``unknown`` (the
-  reference's answer when its diagnosis package fails to import), and the
-  worker's ``/healthz`` answers ``{"ok": true}`` without the reference's
-  ``doctor`` block (item 9).
+reference.  The doctor's ``doctor.findings.<RULE>`` gauges export as one
+``orion_tpu_doctor_findings{rule,severity}`` family labelled with each
+rule's declared severity, and the worker's ``/healthz`` carries the
+doctor's summary block (``orion_tpu_torch.diagnosis``).
 """
 
 import http.server
@@ -47,6 +44,7 @@ import os
 import re
 import threading
 
+from orion_tpu_torch.analysis.sanitizer import TSAN
 from orion_tpu_torch.telemetry import TELEMETRY, bucket_upper_seconds
 
 log = logging.getLogger(__name__)
@@ -61,7 +59,7 @@ _NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
 _TENANT_RE = re.compile(r"^serve\.tenant\.(?P<tenant>.+)\.request$", re.DOTALL)
 
 #: Doctor findings gauges (``doctor.findings.<RULE>``, published by
-#: the reference's ``diagnosis/watch.py``) export as ONE
+#: ``diagnosis/watch.py``) export as ONE
 #: ``orion_tpu_doctor_findings{rule,severity}`` family — rule ids are a
 #: closed registry, and the severity label comes from each rule's own
 #: declaration.
@@ -69,11 +67,16 @@ _DOCTOR_RE = re.compile(r"^doctor\.findings\.(?P<rule>[A-Za-z0-9_]+)$")
 
 
 def _doctor_severities():
-    """rule id -> declared severity.  The rule catalog is the diagnosis
-    package (ROADMAP queue A item 9), not ported yet: no rule has a
-    declared severity, so every id labels as ``unknown`` rather than
-    dropping the sample, as the reference's failed import does."""
-    return {}
+    """rule id -> declared severity (lazy: the rule catalog is only
+    imported when a scrape actually carries doctor gauges).  An id the
+    catalog does not know labels as ``unknown`` rather than dropping the
+    sample."""
+    try:
+        from orion_tpu_torch.diagnosis import rule_severities
+
+        return rule_severities()
+    except Exception:  # pragma: no cover - the scrape must still render
+        return {}
 
 
 def sanitize_name(name):
@@ -273,10 +276,12 @@ _worker_lock = threading.Lock()
 
 
 def _worker_healthz():
-    """The worker /healthz payload: liveness.  The reference adds the
-    doctor's summary block (``doctor``); the diagnosis package is ROADMAP
-    queue A item 9, and the block comes with it."""
-    return {"ok": True}
+    """The worker /healthz payload: liveness + the doctor summary block
+    (``orion_tpu_torch.diagnosis``) — probes key off diagnosis, not bare
+    process liveness."""
+    from orion_tpu_torch.diagnosis import doctor_summary
+
+    return {"ok": True, "doctor": doctor_summary()}
 
 
 def ensure_worker_metrics_server(port=None):
@@ -294,8 +299,10 @@ def ensure_worker_metrics_server(port=None):
       the first binds it, the rest fall back to an EPHEMERAL port (logged
       with the bound address) instead of silently exporting nothing.
 
-    The worker's ``/healthz`` answers bare liveness (see
-    :func:`_worker_healthz`)."""
+    The worker's ``/healthz`` answers a DOCTOR summary block next to bare
+    liveness (status + critical/warn counts, from the watchdog's last
+    published report or a fresh local-registry pass) so a probe keys off
+    diagnosis, not just an open socket."""
     global _worker_server
     if port is None:
         raw = os.environ.get("ORION_TPU_METRICS_PORT", "").strip()
@@ -307,6 +314,7 @@ def ensure_worker_metrics_server(port=None):
             log.warning("ignoring non-numeric ORION_TPU_METRICS_PORT=%r", raw)
             return None
     with _worker_lock:
+        TSAN.write("metrics._worker_server")
         if _worker_server is not None:
             return _worker_server
         try:

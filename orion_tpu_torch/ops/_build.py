@@ -80,7 +80,13 @@ def build(name):
 
 def load(name):
     """The loaded :class:`ctypes.CDLL` of ``csrc/<name>.cu``, built on
-    first use and cached for the life of the process."""
+    first use and cached for the life of the process.  The lock is taken
+    only to build and load: a loaded library is returned without it, so a
+    launch made under another lock (a round under the step-graph lock)
+    takes none of this module's."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

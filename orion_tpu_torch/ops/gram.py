@@ -117,6 +117,15 @@ def fused_gram_reference(xa, xb, inv_lengthscales, amplitude, *, kind="matern52"
     return _epilogue(kind, r2, amplitude)
 
 
+def ensure_loaded():
+    """Build and load the kernel's library now, if this process has not
+    yet.  The step graphs call it before they take their lock, so that no
+    round or prewarm holds the step-graph lock while the build lock is
+    taken (the order the concurrency sanitizer observed, and the static
+    lock graph cannot see through the round's callable)."""
+    _lib()
+
+
 def _lib():
     from orion_tpu_torch.ops import _build
 

@@ -34,14 +34,14 @@ and the soak gate assert on.
 
 The drain publishes ``storage.drain.phase_age_s`` — seconds since the
 current phase last made progress, 0 between runs — the gauge a stuck
-drain shows on (the reference's ``drain-stuck`` doctor rule reads it; the
-port's doctor is ROADMAP queue A item 9).
+drain shows on (the doctor's ``drain-stuck`` rule, DX060, reads it).
 """
 
 import logging
 import threading
 import time
 
+from orion_tpu_torch.analysis.sanitizer import TSAN
 from orion_tpu_torch.storage.rebalance import Move, RebalancePlan, Rebalancer
 from orion_tpu_torch.storage.retry import MODE_ALWAYS
 from orion_tpu_torch.storage.shard import PLACEMENT_COLLECTION, HashRing
@@ -185,12 +185,14 @@ class Drainer(Rebalancer):
     # --- phase-age gauge -----------------------------------------------------
     def _note_phase(self, name):
         with self._phase_lock:
+            TSAN.write("Drainer._phase", self)
             self._phase = name
             self._phase_since = time.monotonic()
         TELEMETRY.set_gauge(DRAIN_PHASE_AGE_GAUGE, 0.0)
 
     def _note_progress(self):
         with self._phase_lock:
+            TSAN.write("Drainer._phase", self)
             since = self._phase_since
         TELEMETRY.set_gauge(
             DRAIN_PHASE_AGE_GAUGE, max(0.0, time.monotonic() - since)
@@ -199,6 +201,7 @@ class Drainer(Rebalancer):
     def phase(self):
         """``(phase_name_or_None, seconds_in_phase)`` — operator surface."""
         with self._phase_lock:
+            TSAN.write("Drainer._phase", self)
             return self._phase, max(0.0, time.monotonic() - self._phase_since)
 
     # --- completeness --------------------------------------------------------

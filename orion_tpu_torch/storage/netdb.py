@@ -41,6 +41,7 @@ import threading
 import time
 from collections import deque
 
+from orion_tpu_torch.analysis.sanitizer import TSAN
 from orion_tpu_torch.health import FLIGHT
 from orion_tpu_torch.storage.backends import _DBUnpickler, atomic_pickle_dump
 from orion_tpu_torch.storage.documents import MemoryDB
@@ -1284,7 +1285,7 @@ class DBServer(socketserver.ThreadingTCPServer):
         return getattr(self.db, "inner", self.db)
 
     def _log_entry_locked(self, op, args, kwargs):
-        self.seq += 1  # caller holds _repl_lock (_locked contract)
+        self.seq += 1  # lint: disable=LCK002 -- caller holds _repl_lock (_locked contract)
         self._repl_log.append((self.seq, op, args, kwargs))
         self._persist_seq_locked()
         return self.seq
@@ -1334,8 +1335,8 @@ class DBServer(socketserver.ThreadingTCPServer):
         for name, docs in (snapshot.get("collections") or {}).items():
             if docs:
                 db.write(name, docs)
-        self.seq = int(snapshot.get("seq", 0))  # caller holds _repl_lock (_locked contract)
-        self.epoch = int(snapshot.get("epoch", self.epoch))  # caller holds _repl_lock (_locked contract)
+        self.seq = int(snapshot.get("seq", 0))  # lint: disable=LCK002 -- caller holds _repl_lock (_locked contract)
+        self.epoch = int(snapshot.get("epoch", self.epoch))  # lint: disable=LCK002 -- caller holds _repl_lock (_locked contract)
         self._persist_seq_locked()
 
     def _notify_links(self):
@@ -1379,6 +1380,7 @@ class DBServer(socketserver.ThreadingTCPServer):
         not break the wire."""
         now = time.monotonic()
         with self._span_flush_lock:
+            TSAN.write("DBServer._span_flush", self)
             if not force and now - self._last_span_flush < self.SPAN_FLUSH_INTERVAL:
                 return
             self._last_span_flush = now
@@ -1608,6 +1610,7 @@ class NetworkDB:
 
     # --- wire ----------------------------------------------------------------
     def _connect(self):
+        TSAN.write("NetworkDB._conn", self)
         self._close()
         if self._ever_connected and self.reconnect_jitter > 0.0:
             # Full jitter BEFORE the dial: after a drop_all()-style restart
@@ -1629,7 +1632,7 @@ class NetworkDB:
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._sock = sock
         self._file = sock.makefile("rb")
-        # every caller of _connect holds _lock
+        # lint: disable=LCK002 -- every caller of _connect holds _lock
         self._last_used = time.monotonic()
         if self.secret is not None:
             self._authenticate()
@@ -1648,6 +1651,7 @@ class NetworkDB:
             raise
 
     def _close(self):
+        TSAN.write("NetworkDB._conn", self)
         for closer in (self._file, self._sock):
             if closer is not None:
                 try:
@@ -1693,13 +1697,14 @@ class NetworkDB:
         Round-trip latency feeds the ``storage.network.rtt`` telemetry
         histogram when the registry is enabled."""
         t0 = time.perf_counter() if TELEMETRY.enabled else None
+        TSAN.write("NetworkDB._conn", self)
         self._sock.sendall(payload)
         response = _read_line(self._file, _REPLY_MAX_LINE)
         if response is None:
             raise ConnectionError("server closed the connection")
-        self._last_used = time.monotonic()  # caller holds _lock
-        self.round_trips += 1  # caller holds _lock
-        self.wire_requests += 1  # caller holds _lock
+        self._last_used = time.monotonic()  # lint: disable=LCK002 -- caller holds _lock
+        self.round_trips += 1  # lint: disable=LCK002 -- caller holds _lock
+        self.wire_requests += 1  # lint: disable=LCK002 -- caller holds _lock
         self._note_seq(response)  # caller holds _lock
         if t0 is not None:
             TELEMETRY.observe("storage.network.rtt", time.perf_counter() - t0)

@@ -61,6 +61,7 @@ import weakref
 from bisect import bisect_right
 from collections import OrderedDict
 
+from orion_tpu_torch.analysis.sanitizer import TSAN
 from orion_tpu_torch.health import FLIGHT
 from orion_tpu_torch.storage.netdb import NetworkDB
 from orion_tpu_torch.storage.retry import MODE_ALWAYS, create_retry_policy, is_transient
@@ -362,6 +363,7 @@ class _Shard:
         seq, epoch = (client or self.primary).stamp_snapshot()
         stale = False
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             if epoch is not None:
                 if epoch < self._epoch:
                     stale = True
@@ -377,11 +379,13 @@ class _Shard:
         if not epoch:
             return
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             if epoch > self._epoch:
                 self._epoch = epoch
 
     def epoch_floor(self):
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             return self._epoch
 
     # --- primary failure detection / promotion ------------------------------
@@ -389,16 +393,19 @@ class _Shard:
         """Mark one failed primary op; the streak starts at the FIRST
         consecutive failure and clears on any success."""
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             if self._fail_since is None:
                 self._fail_since = now
 
     def clear_primary_failure(self):
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             self._fail_since = None
 
     def failing_for(self, now):
         """Seconds the primary has been failing continuously (0 if healthy)."""
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             return 0.0 if self._fail_since is None else now - self._fail_since
 
     def promote_swap(self, replica_index, epoch, now):
@@ -407,6 +414,7 @@ class _Shard:
         the dead box is reborn it comes back demoted, a legitimate read
         replica).  The shard's ring identity does NOT change."""
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             winner = self.replicas[replica_index]
             self.replicas[replica_index] = self.primary
             self.primary = winner
@@ -422,6 +430,7 @@ class _Shard:
         node that restarted back into its configured replica role): no
         swap, just the epoch/streak/counter bookkeeping."""
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             if epoch > self._epoch:
                 self._epoch = epoch
             self._fail_since = None
@@ -429,6 +438,7 @@ class _Shard:
 
     def write_floor(self):
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             return self._write_floor
 
     def pick_replica(self, now):
@@ -436,6 +446,7 @@ class _Shard:
         if not self.replicas:
             return None
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             n = len(self.replicas)
             for offset in range(n):
                 candidate = (self._rr + offset) % n
@@ -446,11 +457,13 @@ class _Shard:
 
     def bench_replica(self, index, now):
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             self._down_until[index] = now + REPLICA_RETRY_S
             self.failovers += 1
 
     def note_stale(self):
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             self.replica_stale_reads += 1
 
     def adopt_replacement(self, replica_index, client, dead_addr, now):
@@ -463,6 +476,7 @@ class _Shard:
         the caller, outside this lock)."""
         addr = f"{client.host}:{client.port}"
         with self._lock:
+            TSAN.write("ShardedNetworkDB._shard_state", self)
             old = self.replicas[replica_index]
             self.replicas[replica_index] = client
             self._down_until[replica_index] = now + REPLICA_RETRY_S
@@ -795,8 +809,10 @@ class ShardedNetworkDB:
             self._identity_index = {s.identity: s.index for s in rebuilt}
             self._passthrough = len(rebuilt) == 1 and not rebuilt[0].replicas
             with self._owner_lock:
+                TSAN.write("ShardedNetworkDB._owners", self)
                 self._owners.clear()
             with self._placement_lock:
+                TSAN.write("ShardedNetworkDB._placements", self)
                 self._placements.clear()
             self._register_shard_counters()
         for shard in old.values():
@@ -909,6 +925,7 @@ class ShardedNetworkDB:
     def _placement_cached(self, key):
         now = self._now()
         with self._placement_lock:
+            TSAN.write("ShardedNetworkDB._placements", self)
             entry = self._placements.get(key)
             if entry is None or entry[2] <= now:
                 return None
@@ -931,6 +948,7 @@ class ShardedNetworkDB:
             # Never cached: re-read until the migrator flips it.
             return identity, state
         with self._placement_lock:
+            TSAN.write("ShardedNetworkDB._placements", self)
             placements = self._placements
             placements[key] = (identity, state, self._now() + self.placement_ttl)
             placements.move_to_end(key)
@@ -954,18 +972,21 @@ class ShardedNetworkDB:
         if key is None:
             return
         with self._placement_lock:
+            TSAN.write("ShardedNetworkDB._placements", self)
             entry = self._placements.get(str(key))
             if entry is not None and entry[0] is not None:
                 del self._placements[str(key)]
 
     def _owner_of(self, collection, _id):
         with self._owner_lock:
+            TSAN.write("ShardedNetworkDB._owners", self)
             return self._owners.get((collection, _id))
 
     def _remember_owner(self, collection, _id, index):
         if _id is None:
             return
         with self._owner_lock:
+            TSAN.write("ShardedNetworkDB._owners", self)
             owners = self._owners
             owners[(collection, _id)] = index
             owners.move_to_end((collection, _id))
@@ -988,6 +1009,7 @@ class ShardedNetworkDB:
         op-level policy above owns their applied-or-not discipline."""
         shards = self._shards
         with self._stats_lock:
+            TSAN.write("ShardedNetworkDB._stats", self)
             self.fan_outs += 1
         TELEMETRY.count("storage.shard.fan_outs")
         results = [None] * len(shards)
@@ -1330,6 +1352,7 @@ class ShardedNetworkDB:
         now = self._now()
         live = {s.identity for s in shards}
         with self._reprovision_lock:
+            TSAN.write("ShardedNetworkDB._replica_down", self)
             # Entries for shards a topology change removed never fire.
             for key in [
                 k for k in self._replica_down_since if k[0] not in live
@@ -1355,11 +1378,13 @@ class ShardedNetworkDB:
                     self._probe_seq(replica)
                 except Exception:
                     with self._reprovision_lock:
+                        TSAN.write("ShardedNetworkDB._replica_down", self)
                         since = self._replica_down_since.setdefault(key, now)
                     if now - since >= self.reprovision_after:
                         self._reprovision(shard, replica_index, addr)
                 else:
                     with self._reprovision_lock:
+                        TSAN.write("ShardedNetworkDB._replica_down", self)
                         self._replica_down_since.pop(key, None)
 
     def _reprovision(self, shard, replica_index, dead_addr):
@@ -1398,6 +1423,7 @@ class ShardedNetworkDB:
             )
             old.close()
             with self._reprovision_lock:
+                TSAN.write("ShardedNetworkDB._replica_down", self)
                 self._replica_down_since.pop((shard.identity, dead_addr), None)
                 self.reprovisions += 1
             TELEMETRY.count("storage.shard.reprovisions")

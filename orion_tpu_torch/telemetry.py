@@ -40,9 +40,9 @@ Perfetto flow events (``s``/``f`` phases).  The wire clients that inject
 the context into their requests (``netdb``, the serve client) are ROADMAP
 queue A items 7 and 8.
 
-Left out: the reference wraps every registry lock in the concurrency
-sanitizer's ``TSAN.read``/``TSAN.write`` annotations.  The locks stay; the
-annotations come with the sanitizer (ROADMAP queue A item 9).
+Every access to the registry's shared state under its lock is annotated
+for the concurrency sanitizer (``TSAN.read``/``TSAN.write``, one attribute
+check when it is off), as in the reference.
 """
 
 import json
@@ -50,6 +50,11 @@ import os
 import threading
 import time
 import weakref
+
+# Annotated-cell hooks for the runtime concurrency sanitizer
+# (orion-tpu-torch tsan): one attribute check when disabled,
+# constant-string args — the same cost discipline the registry keeps.
+from orion_tpu_torch.analysis.sanitizer import TSAN
 
 _ENABLE_VALUES = ("1", "on", "true", "yes")
 
@@ -288,6 +293,7 @@ class Telemetry:
         if not self.enabled:
             return
         with self._lock:
+            TSAN.write("Telemetry._metrics", self)
             self._counters[name] = self._counters.get(name, 0) + int(n)
 
     def counter_value(self, name, default=0):
@@ -295,6 +301,7 @@ class Telemetry:
         incremented).  Reader for in-process assertions (the tests check
         counter deltas through this)."""
         with self._lock:
+            TSAN.read("Telemetry._metrics", self)
             return self._counters.get(name, default)
 
     def set_gauge(self, name, value):
@@ -302,6 +309,7 @@ class Telemetry:
         if not self.enabled:
             return
         with self._lock:
+            TSAN.write("Telemetry._metrics", self)
             self._gauges[name] = float(value)
 
     def gauge_value(self, name, default=None):
@@ -311,6 +319,7 @@ class Telemetry:
         record through this, so the doctor's trend rules get a stored
         time series out of a last-write-wins gauge."""
         with self._lock:
+            TSAN.read("Telemetry._metrics", self)
             return self._gauges.get(name, default)
 
     def observe(self, name, seconds):
@@ -325,6 +334,7 @@ class Telemetry:
         """THE histogram update — callers hold the registry lock.  Shared
         by observe() and record_span() so the two sample sources can never
         drift apart."""
+        TSAN.write("Telemetry._metrics", self)
         hist = self._histograms.get(name)
         if hist is None:
             hist = [[0] * N_BUCKETS, 0, 0.0, seconds, seconds]
@@ -347,6 +357,7 @@ class Telemetry:
         except TypeError:  # pragma: no cover - exotic objects without weakref
             return
         with self._lock:
+            TSAN.write("Telemetry._metrics", self)
             entries = self._external.setdefault(name, [])
             for existing_ref, existing_attr in entries:
                 if existing_ref() is obj and existing_attr == attr:
@@ -359,6 +370,7 @@ class Telemetry:
         counters move to a new name and must stop exporting under the old
         one."""
         with self._lock:
+            TSAN.write("Telemetry._metrics", self)
             entries = self._external.get(name)
             if not entries:
                 return
@@ -371,6 +383,7 @@ class Telemetry:
     def _external_counts(self):
         out = {}
         with self._lock:
+            TSAN.write("Telemetry._metrics", self)  # prunes dead registrations
             for name, entries in list(self._external.items()):
                 live = [(ref, attr) for ref, attr in entries if ref() is not None]
                 if not live:
@@ -448,6 +461,7 @@ class Telemetry:
                 track=track,
             )
             with self._lock:
+                TSAN.write("Telemetry._ring", self)
                 self._ring[self._seq % self._capacity] = record
                 self._seq += 1
                 if histogram:
@@ -546,6 +560,7 @@ class Telemetry:
                 for entry in entries
             ]
             with self._lock:
+                TSAN.write("Telemetry._ring", self)
                 for name, record, duration in records:
                     self._ring[self._seq % self._capacity] = record
                     self._seq += 1
@@ -557,6 +572,7 @@ class Telemetry:
         """Every span currently in the ring, oldest first (wraparound has
         dropped anything older than ``capacity`` records)."""
         with self._lock:
+            TSAN.read("Telemetry._ring", self)
             start = max(0, self._seq - self._capacity)
             return [self._ring[i % self._capacity] for i in range(start, self._seq)]
 
@@ -565,6 +581,7 @@ class Telemetry:
         exactly once — the worker flush channel).  Wraparound between
         drains loses the overwritten oldest records, by design."""
         with self._lock:
+            TSAN.write("Telemetry._ring", self)  # advances the drain cursor
             start = max(self._drained, self._seq - self._capacity)
             out = [self._ring[i % self._capacity] for i in range(start, self._seq)]
             self._drained = self._seq
@@ -577,6 +594,7 @@ class Telemetry:
         through ``DocumentStorage.record_metrics`` every round."""
         external = self._external_counts()
         with self._lock:
+            TSAN.read("Telemetry._metrics", self)
             counters = dict(self._counters)
             gauges = dict(self._gauges)
             histograms = {
@@ -599,6 +617,8 @@ class Telemetry:
         monotonic txn/wire totals must not bleed into a fresh measurement;
         a backend created after the reset re-registers on construction)."""
         with self._lock:
+            TSAN.write("Telemetry._metrics", self)
+            TSAN.write("Telemetry._ring", self)
             self._counters.clear()
             self._gauges.clear()
             self._histograms.clear()

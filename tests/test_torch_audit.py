@@ -187,7 +187,7 @@ def test_audit_flight_out_raises_until_the_flight_recorder_is_ported(tmp_path, c
              for pkg, path in outs.items()}
     header = {pkg: lines[pkg][0] for pkg in lines}
     assert header["port"]["type"] == "flight-record" and header["port"]["reason"] == "audit-failure"
-    assert set(header["port"]) == set(header["ref"]) - {"doctor"}
+    assert set(header["port"]) == set(header["ref"])
     events = {pkg: [{k: v for k, v in e.items() if k != "ts"} for e in lines[pkg][1:]]
               for pkg in lines}
     assert events["port"] == events["ref"] and len(events["port"]) == 6

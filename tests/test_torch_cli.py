@@ -155,16 +155,12 @@ def test_resolve_config_matches_reference(tmp_path, monkeypatch, layers):
 @pytest.mark.parametrize("key,value", [("telemetry", True), ("metrics_port", 9100),
                                        ("doctor_interval", 5.0)])
 def test_telemetry_keys_raise_naming_item_9(key, value):
-    """Of the reference's telemetry keys only ``doctor_interval`` still
-    raises, naming item 9: it starts the diagnosis watchdog, which is not
-    ported.  ``telemetry`` and ``metrics_port`` resolve as the reference
-    resolves them.  Null is accepted for all three."""
+    """The reference's telemetry keys all resolve as the reference resolves
+    them, ``doctor_interval`` included now that the watchdog is ported (the
+    name dates from when it raised, naming item 9).  Null is accepted for
+    all three."""
     assert ref_config.resolve_config({key: value})[key] == value
-    if key == "doctor_interval":
-        with pytest.raises(NotImplementedError, match="item 9"):
-            config.resolve_config({key: value})
-    else:
-        assert config.resolve_config({key: value})[key] == value
+    assert config.resolve_config({key: value})[key] == value
     assert config.resolve_config({key: None}).get(key) is None
 
 
@@ -417,9 +413,9 @@ def test_cli_lists_only_the_ported_commands(capsys):
     from orion_tpu_torch.cli import build_parser
 
     commands = build_parser()._subparsers._group_actions[0].choices
-    assert sorted(commands) == ["audit", "db", "flight-record", "hunt", "info", "init-only",
-                                "insert", "list", "metrics", "profile", "setup", "status",
-                                "test-db", "top", "trace"]
+    assert sorted(commands) == ["audit", "db", "doctor", "flight-record", "hunt", "info",
+                                "init-only", "insert", "list", "metrics", "profile", "setup",
+                                "status", "test-db", "top", "trace", "tsan"]
     with pytest.raises(SystemExit):
         main(["--version"])
     assert capsys.readouterr().out.startswith("orion-tpu-torch ")

@@ -919,3 +919,47 @@ def test_bucket_crossing_after_a_prewarm(cuda, monkeypatch, telemetry_off_after,
     else:
         assert new == []
         assert [e.kind for e in COMPILE_REGISTRY.entries()].count("prewarm") == 1
+
+
+@pytest.mark.cuda
+def test_tsan_round_with_the_prewarmer_racing_on_the_card(cuda, telemetry_off_after):
+    """Under the port's runtime sanitizer, ``tpu_bo`` on the card crosses
+    64 -> 128 with ``prewarm=True`` and nobody waiting for the prewarm: the
+    prewarmer's capture thread and the rounds contend for the step-graph
+    lock, and both touch the annotated cache, pool, compiler plane and
+    registry.  No race, no lock-order cycle, no observed lock edge the
+    static lock graph of ``orion_tpu_torch/`` lacks (the kernel library is
+    loaded before the step-graph lock is taken); every round, and every
+    prewarm's warm-up round, launches ``fused_gram``."""
+    import os
+
+    from orion_tpu_torch.analysis.sanitizer import TSAN, cross_check_static
+
+    telemetry, _flight = telemetry_off_after
+    telemetry.enabled = True
+    # A candidate count of its own: no other test captured these signatures.
+    # 32768 candidates reach fused_gram's route at a 64-row fit buffer.
+    config = {"tpu_bo": {"n_init": 16, "n_candidates": 32768 + 24, "fit_steps": 4,
+                         "local_frac": 0.25, "prewarm": True}}
+    TSAN.enable(seed=0)
+    try:
+        algo = _main_path_algo(cuda, seed=7, config=config, n_obs=40, width=6)
+        before = gram.fused_gram.launches
+        for _ in range(4):  # 40 -> 56 (the prewarm starts at 48 of 64) -> ... -> 104
+            rows = algo.suggest_batch(16).cube
+            algo.observe_arrays(rows, rows.sum(axis=1))
+        algo._prewarmer.wait()
+        launches = gram.fused_gram.launches - before
+    finally:
+        report = TSAN.disable()
+    assert report.violation_count() == 0, report.format_human()
+    package = os.path.dirname(os.path.dirname(os.path.abspath(gram.__file__)))
+    assert cross_check_static(report.edges, [package]) == {
+        "unmodeled_edges": [], "confirmed_static_cycles": []}
+    prewarms = algo._prewarmer.completed_count()
+    assert prewarms >= 1 and algo._prewarmer.failed_count() == 0
+    assert launches == 4 + prewarms
+    cells = {c.split("#")[0] for c in report.cells}
+    assert {"StepGraphs._entries", "StepGraphs._pool", "BucketPrewarmer._threads",
+            "CompileRegistry._entries", "Telemetry._metrics"} <= cells
+    assert report.locks["StepGraphs.lock"] >= 1

@@ -2,9 +2,9 @@
 ``orion_tpu.health``: the same events, made from a numpy seed, recorded
 with one injected clock into a recorder of each package give the same
 ring (wrap included), the same drains and the same dump, line for line
-(the reference's header adds its doctor's verdict, which comes with the
-diagnosis package); the crash dump, the env switches, the span mirror
-both ways, the disabled path, and a crashed worker loop's dump."""
+(the header's doctor verdict included); the crash dump, the env switches,
+the span mirror both ways, the disabled path, and a crashed worker loop's
+dump."""
 
 import json
 import os
@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 
 from orion_tpu import health as ref
+from orion_tpu.diagnosis.watch import _reset_last_summary as ref_reset_last_summary
 from orion_tpu_torch import health
+from orion_tpu_torch.diagnosis.watch import _reset_last_summary
 from torch_parity import isolated_telemetry
 
 KINDS = ("producer.round", "storage.retry", "trial.status", "storage.gave_up")
@@ -51,9 +53,20 @@ def _read(path):
         return [json.loads(line) for line in handle]
 
 
+@pytest.fixture(autouse=True)
+def _no_published_doctor_verdict():
+    """The doctor's last-published slot is process-wide in each package:
+    start every dump from an empty one, so both headers read ``unknown``."""
+    _reset_last_summary()
+    ref_reset_last_summary()
+    yield
+    _reset_last_summary()
+    ref_reset_last_summary()
+
+
 def _same_dump(got, want):
-    """Header equal less the reference's ``doctor`` block; events equal."""
-    assert {k: v for k, v in want[0].items() if k != "doctor"} == got[0]
+    """Headers equal, the doctor's verdict included; events equal."""
+    assert want[0] == got[0]
     assert got[1:] == want[1:]
 
 
@@ -84,7 +97,9 @@ def test_ring_drain_and_dump_match_reference(monkeypatch, tmp_path, seed, n):
     _same_dump(*dumps)
     assert dumps[0][0] == {"type": "flight-record", "reason": "on-demand",
                            "host": dumps[0][0]["host"], "pid": os.getpid(), "time": 5000.0,
-                           "events": len(ring) + 1, "enabled": True}
+                           "events": len(ring) + 1, "enabled": True,
+                           "doctor": {"status": "unknown", "critical": 0, "warn": 0,
+                                      "info": 0}}
     for recorder in recorders:
         recorder.clear()
     assert recorders[0].events() == recorders[1].events() == []

@@ -2,10 +2,9 @@
 ``orion_tpu``'s on the same stores: the experiment's sections, the
 producer's timings, the merged telemetry snapshots with their host/device
 ratio lines, the compiler digest (the port's CUDA-graph counters under the
-reference's layout) and the health records print as the reference prints
-them; the doctor's section, which waits for another ROADMAP item, prints
-one line naming it; ``info --all`` over a sharded plane leads with the
-reference's topology line."""
+reference's layout), the health records and the doctor's verdict print as
+the reference prints them; ``info --all`` over a sharded plane leads with
+the reference's topology line."""
 
 import re
 import time
@@ -96,7 +95,8 @@ def test_info_prints_the_reference_sections(tmp_path, capsys):
                    .replace("orion-tpu-torch profile", "orion-tpu profile"))
         assert renamed == ref["Compiler"]
         assert port["Compiler"].startswith("captures: 6  recaptures: 4 (4 attributed, ")
-        assert port["Doctor"].strip() == info.DOCTOR_NOT_PORTED and "item 9" in port["Doctor"]
+        assert port["Doctor"].replace("orion-tpu-torch", "orion-tpu") == ref["Doctor"]
+        assert port["Doctor"].startswith("doctor: ")
     assert "workers reporting: 2" in outputs[1] and "--- worker w2" in outputs[1]
 
 

@@ -2,8 +2,9 @@
 neither JAX (``jax``, ``jaxlib``, ``optax``) nor any module of the JAX
 package ``orion_tpu`` — matched as the exact module or a dotted prefix, so
 ``orion_tpu_torch`` itself does not count.  The telemetry plane's, the
-network plane's, the day-2 operations' and the device plane's modules are
-also checked by name, and for importing without side effects."""
+network plane's, the day-2 operations', the device plane's and the
+doctor's and sanitizer's modules are also checked by name, and for
+importing without side effects."""
 
 import ast
 import os
@@ -236,6 +237,45 @@ def test_device_plane_stands_alone():
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+DIAGNOSIS = ("analysis", "analysis.sanitizer", "analysis.engine", "analysis.lock_rules",
+             "diagnosis", "diagnosis.trend", "diagnosis.engine", "diagnosis.snapshot",
+             "diagnosis.rules_system", "diagnosis.rules_storage", "diagnosis.rules_gp",
+             "diagnosis.rules_compiler", "diagnosis.watch", "cli.doctor", "cli.tsan")
+
+
+def test_diagnosis_and_sanitizer_stand_alone():
+    """The doctor's and the sanitizer's modules are among the checked
+    files, and in a fresh interpreter importing them loads neither JAX nor
+    ``orion_tpu``, starts no thread, leaves ``threading`` unpatched (the
+    sanitizer is off unless ``ORION_TPU_TSAN`` asks) and initializes no
+    CUDA."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in DIAGNOSIS:
+        base = os.path.join("orion_tpu_torch", *name.split("."))
+        assert base + ".py" in files or os.path.join(base, "__init__.py") in files, name
+    modules = [f"orion_tpu_torch.{name}" for name in DIAGNOSIS]
+    code = (
+        "import importlib, sys, threading\n"
+        "real = threading.Lock, threading.Event, threading.Thread.start\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import torch\n"
+        "from orion_tpu_torch.analysis.sanitizer import TSAN\n"
+        "assert not TSAN.enabled\n"
+        "assert (threading.Lock, threading.Event, threading.Thread.start) == real\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("ORION_TPU_TSAN", None)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,9 +1,10 @@
 """The port's metrics export plane (``orion_tpu_torch.metrics``) against
 ``orion_tpu.metrics``: the Prometheus text of the same snapshots byte for
 byte, the name and label escaping, and the worker's ``/metrics`` +
-``/healthz`` server (the registry's exposition, ``{"ok": true}`` without
-the reference's ``doctor`` block, the ephemeral-port fallback for a second
-worker, and the ``metrics_port:`` key through the CLI config).  The
+``/healthz`` server (the registry's exposition, ``{"ok": true}`` with the
+doctor's summary block on a worker's server, the ephemeral-port fallback
+for a second worker, and the ``metrics_port:`` key through the CLI
+config).  The
 snapshots come from seeded numpy sequences; every comparison is exact."""
 
 import json
@@ -88,15 +89,20 @@ def test_merged_exposition_matches_reference():
 
 
 def test_doctor_rules_label_unknown_until_the_diagnosis_is_ported():
-    """A known rule id: the reference labels its declared severity, the
-    port ``unknown`` (its severities come with item 9); the gauge itself is
-    exported the same."""
-    snap = {"gauges": {"doctor.findings.DX021": 1.0}}
-    assert metrics._doctor_severities() == {}
+    """A known rule id labels with its declared severity in both packages
+    (the name dates from when the port labelled every rule ``unknown``);
+    an id no catalog knows still labels ``unknown``."""
+    from orion_tpu.diagnosis import rule_severities as ref_rule_severities
+
+    assert metrics._doctor_severities() == ref_rule_severities()
+    snap = {"gauges": {"doctor.findings.DX021": 1.0, "doctor.findings.DX043": 0.0,
+                       "doctor.findings.NOSUCH1": 2.0}}
     text = metrics.render_exposition(snap)
+    assert text == ref.render_exposition(snap)
     assert text == ('# TYPE orion_tpu_doctor_findings gauge\n'
-                    'orion_tpu_doctor_findings{rule="DX021",severity="unknown"} 1\n')
-    assert ref.render_exposition(snap).split("{")[0] == text.split("{")[0]
+                    'orion_tpu_doctor_findings{rule="DX021",severity="critical"} 1\n'
+                    'orion_tpu_doctor_findings{rule="DX043",severity="info"} 0\n'
+                    'orion_tpu_doctor_findings{rule="NOSUCH1",severity="unknown"} 2\n')
 
 
 @pytest.mark.parametrize("name", ["storage.sqlite.txn", "9x", "a-b.c d", "ok_1", ""])
@@ -156,7 +162,10 @@ def test_worker_server_from_env_enables_telemetry_and_falls_back(monkeypatch):
             started.append(server)
             assert server.port not in (0, taken.port) and tel.enabled
             assert metrics.ensure_worker_metrics_server() is server
-            assert json.loads(_get(server.port, "/healthz")[2]) == {"ok": True}
+            payload = json.loads(_get(server.port, "/healthz")[2])
+            assert payload["ok"] is True
+            assert set(payload["doctor"]) >= {"status", "critical", "warn", "info"}
+            assert payload["doctor"]["status"] in ("ok", "warn", "critical", "unknown")
         finally:
             for server in started:
                 server.stop()

@@ -6,8 +6,9 @@ compiler-plane spans.  Each compiler-plane record is written twice, under the
 reference's names (``jax.compiles``, ``jax.compile``, ``flight.jax.retrace``)
 and under the port's (``cuda_graph.captures``, ``cuda_graph.capture``,
 ``flight.cuda_graph.recapture``), so each package reads its own: the
-documents each renders must then be the same up to the names.  The doctor's
-block is ROADMAP queue A item 9 and is None in the port."""
+documents each renders must then be the same up to the names, the doctor's
+block included (its findings' rules, severities and counts; the messages
+name each package's counters)."""
 
 import json
 
@@ -93,6 +94,11 @@ def _json(fn, argv, capsys):
     return json.loads(capsys.readouterr().out)
 
 
+def _doctor_verdict(doctor):
+    """A doctor block less its findings' messages."""
+    return dict(doctor, findings=[(f["rule"], f["severity"]) for f in doctor["findings"]])
+
+
 def _mask_ages(snap):
     for row in snap["workers"].values():
         for key in ("last_seen_s", "metrics_age_s", "health_age_s", "flush_age_s"):
@@ -107,8 +113,9 @@ def test_top_json_is_the_reference_snapshot(tmp_path, capsys):
     argv = ["top", "-n", "top", "--storage-path", path, "--json"]
     got = _mask_ages(_json(main, argv, capsys))
     want = _mask_ages(_json(ref_main, argv, capsys))
-    assert got.pop("doctor") is None
-    want.pop("doctor")
+    doctor = _doctor_verdict(got.pop("doctor"))
+    assert doctor == _doctor_verdict(want.pop("doctor"))
+    assert doctor["findings"] == [("DX004", "warn"), ("DX051", "warn")]
     assert got == want
     row = got["workers"]["host-b:2"]
     assert row["compiles"] == 3 and row["retraces"] == 2
@@ -120,8 +127,8 @@ def test_top_all_json_and_frames(tmp_path, capsys):
     argv = ["top", "--all", "--storage-path", path, "--json"]
     got = _json(main, argv, capsys)["experiments"]
     want = _json(ref_main, argv, capsys)["experiments"]
-    assert [_mask_ages(dict(s, doctor=None)) for s in got] == \
-        [_mask_ages(dict(s, doctor=None)) for s in want]
+    assert [_mask_ages(dict(s, doctor=_doctor_verdict(s["doctor"]))) for s in got] == \
+        [_mask_ages(dict(s, doctor=_doctor_verdict(s["doctor"]))) for s in want]
     assert main(["top", "-n", "top", "--storage-path", path, "--iterations", "1",
                  "--interval", "0.1"]) == 0
     frame = capsys.readouterr().out
@@ -129,8 +136,10 @@ def test_top_all_json_and_frames(tmp_path, capsys):
                      "--interval", "0.1"]) == 0
     ref_frame = capsys.readouterr().out
     lines = frame.splitlines()
-    ref_lines = [line for line in ref_frame.splitlines() if not line.startswith("doctor:")]
+    ref_lines = ref_frame.splitlines()
     assert lines[0].replace("orion-tpu-torch", "orion-tpu") == ref_lines[0]
+    assert lines[1].replace("orion-tpu-torch", "orion-tpu") == ref_lines[1]
+    assert lines[1].startswith("doctor: WARN (critical: 0, warn: 2, info: 0) [DX004, DX051]")
     # The table (ages masked), the budget breach and the memory line.
     strip = [line.split()[0:3] + line.split()[4:] for line in lines[4:7]]
     ref_strip = [line.split()[0:3] + line.split()[4:] for line in ref_lines[4:7]]
@@ -201,7 +210,7 @@ def test_profile_with_no_data_exits_1_and_capture_runs_the_analysis(tmp_path, ca
     assert "no compiler-plane data" in capsys.readouterr().out
     trace_dir = str(tmp_path / "trace")
     assert main(["profile", "-n", "empty", "--storage-path", path, "--capture",
-                 trace_dir, "--json"]) == 0
+                 trace_dir, "--json", "--device", "cpu"]) == 0
     out = capsys.readouterr()
     assert json.loads(out.out)["registry"]["analysis"] == {"analyzed": 0, "skipped": 0}
     assert "profile: wrote" in out.err
@@ -212,3 +221,31 @@ def test_commands_are_registered(command, capsys):
     with pytest.raises(SystemExit):
         main([command, "--help"])
     assert "usage:" in capsys.readouterr().out
+
+
+def test_profile_capture_refuses_to_trace_the_cpu_in_place_of_the_card(tmp_path, capsys):
+    """``profile --capture`` traces the card unless ``--device cpu`` is
+    given: where no card is present it exits 1 with ``resolve_device``'s
+    error and writes no trace, and ``profiler_capture`` without a device
+    raises; with ``--device cpu`` it writes one."""
+    import os
+
+    import torch
+
+    from orion_tpu_torch.compiler_plane import profiler_capture
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device traces it")
+    path = str(tmp_path / "empty.sqlite")
+    _seed(ref_create_storage({"type": "sqlite", "path": path}), name="empty")
+    trace_dir = tmp_path / "trace"
+    argv = ["profile", "-n", "empty", "--storage-path", path, "--capture", str(trace_dir)]
+    assert main(argv) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not trace_dir.exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with profiler_capture(str(trace_dir)):
+            pass
+    assert not trace_dir.exists()
+    assert main(argv + ["--device", "cpu", "--json"]) == 0
+    assert os.listdir(trace_dir) == [f"trace-{os.getpid()}.json"]
