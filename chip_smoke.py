@@ -89,7 +89,7 @@ non-zero; nothing is caught and passed over):
    ``orion-tpu-torch hunt --n-workers 4 --profile`` on a SQLite file
    seeded through the library with 256 completed trials and 384 pending
    (a random round partly run: the workers run them out, then each pays
-   its own GP round), 64 trials past them (the ``cli`` phase's script and
+   its own GP round), 16 trials past them (the ``cli`` phase's script and
    unseeded ``tpu_bo``, ``--pool-size 1024``), twice: with ``telemetry:
    false``, and with
    ``telemetry: true`` and a free ``metrics_port``, on first unless
@@ -199,7 +199,29 @@ non-zero; nothing is caught and passed over):
    and no LCK003 finding; the instrumented locks and annotated accesses
    counted; each GP round the store's spans book launched ``fused_gram``
    (the workers' traces).
-16. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+16. ``serve``: the suggest gateway (``orion_tpu_torch.serve``) at the main
+   path's width.  (a) One ``GatewayServer(device="cuda", max_width=8)`` in
+   this process, eight ``tpu_bo`` tenants (the main path's config and
+   130-point history, seeds 0-7) in threads, four barriered rounds of
+   ``suggest(1024)`` and an observe of the rows' Hartmann6 values; then the
+   same through a gateway of ``max_width=1``: every tenant's rows and
+   GPState of every round bitwise equal, each coalesced round one dispatch
+   of width 8 (eight standalone replays, ``fused_gram`` launched 8 times a
+   round at 16384 x 256 x 6), suggestions/s of both gateways, the
+   plan-prep cache's hit and miss cost, and the step graphs holding one
+   signature, the standalone round's, with the pool no larger after the
+   coalesced rounds than after the ones served alone; the process-wide
+   pool before the phase reset the cache is printed beside it.  (b)
+   ``orion-tpu-torch serve --persist`` as a subprocess on the card; two
+   ``hunt`` workers of two experiments on one SQLite store with a
+   ``serve:`` section, 16 trials each past a history of 256: trials/s, no
+   ``/dev/nvidia*`` file in either worker and no compute app added while
+   they run, ``info`` (one experiment and ``--all``: the serve fields and
+   the fleet line) and ``top --json``'s serve fields, ``doctor`` exit 0
+   with DX005, DX007 and DX008 silent.  (c) A tenant's round through that
+   gateway, SIGINT and a restart from its ``--persist`` file on the same
+   port: the next q=1024 round bitwise equal to a gateway never stopped.
+17. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -1614,7 +1636,7 @@ def phase_evc(device, tmp):
 #: a ``/metrics`` port; (c) the flight recorder's dumps.
 TELEMETRY_ROUNDS = 6
 TELEMETRY_WORKERS = 4
-TELEMETRY_TRIALS = 64  # past the seeded history and its pending trials
+TELEMETRY_TRIALS = 16  # past the seeded history and its pending trials
 #: The fleets' store holds ``HISTORY`` completed trials and this many left
 #: pending, as a random round partly run: the workers run them out, then
 #: every worker finds the queue empty at once and pays its own GP round.
@@ -2604,9 +2626,9 @@ DAY2_FILLER_TRIALS = 8
 #: Seconds between the live drain's workers starting and the drain.
 DAY2_DRAIN_AFTER_S = 8.0
 #: Trials the live drain's two workers run past the history.
-DAY2_LIVE_TRIALS = 320
+DAY2_LIVE_TRIALS = 64
 #: A resumed hunt's budget past the completed trials.
-DAY2_RESUME_TRIALS = 16
+DAY2_RESUME_TRIALS = 4
 #: The hunts' storage retry policy: a fenced experiment's ops fail with a
 #: transient error for the whole fence window (the placement TTL's grace,
 #: then the delta copy, the verify and the flip), and the policy rides
@@ -3374,7 +3396,8 @@ def run_pool_bound(device):
 def _device_plane_worker(path):
     """A worker process writing the ``device_plane`` store: an
     ``ExperimentClient`` loop with telemetry and the flight recorder on, at
-    the main path's width (q=1024, four rounds) with speculative suggest,
+    the main path's width (q=1024, three rounds: one random, two GP) with
+    speculative suggest,
     so the producer books the device windows the host/device ratio reads;
     the last flush forced, as a ``hunt`` worker's is.  Its first GP round
     is this process's first capture."""
@@ -3389,7 +3412,7 @@ def _device_plane_worker(path):
 
     TELEMETRY.enabled = FLIGHT.enabled = True
     storage = create_storage({"type": "sqlite", "path": path})
-    exp = build_experiment(storage, "device_plane", priors=HUNT_PRIORS, max_trials=4096,
+    exp = build_experiment(storage, "device_plane", priors=HUNT_PRIORS, max_trials=3072,
                            algorithms={"tpu_bo": dict(ALGO, speculative_suggest=True)},
                            pool_size=Q).instantiate(seed=0)
     client = ExperimentClient(exp)
@@ -3780,6 +3803,430 @@ def phase_diagnosis(device, tmp):
             "tsan": tsan["fused_gram_launches"]}
 
 
+#: The ``serve`` phase: the suggest gateway at the main path's width.
+SERVE_TENANTS = 8  # (a)'s tenants: one dispatch of width 8
+SERVE_ROUNDS = 4
+SERVE_WINDOW = 0.25  # seconds the dispatcher waits for the other tenants
+SERVE_TRIALS = 16  # (b)'s trials past each experiment's seeded HISTORY
+SERVE_DX = ("DX005", "DX007", "DX008")
+
+
+def _rows_of(params):
+    return np.asarray([[p[f"x{i}"] for i in range(6)] for p in params], dtype=np.float32)
+
+
+def _bitwise_equal(a, b):
+    """Two tensors bit for bit (a NaN equals the same NaN; ``torch.equal``
+    calls any NaN unequal, and a failed Cholesky leaves NaNs in a state)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(bits), b.view(bits))
+    return torch.equal(a, b)
+
+
+def _state_leaves(state):
+    """A GPState's tensor leaves, copied to the host."""
+    from torch.utils import _pytree as pytree
+
+    return [leaf.detach().cpu().clone() for leaf in pytree.tree_leaves(state)
+            if torch.is_tensor(leaf)]
+
+
+def _serve_tenant(gateway, seed, rounds, barrier, out, name):
+    """One tenant of (a): a ``RemoteAlgorithm`` on ``gateway`` (in this
+    process) with the main path's seeded history, then ``rounds`` of a
+    barriered ``suggest(Q)`` and an observe of its rows' Hartmann6 values;
+    after each suggest, the tenant's GPState as the gateway holds it."""
+    from orion_tpu_torch.serve.client import GatewayClient, RemoteAlgorithm
+    from orion_tpu_torch.space.dsl import build_space
+
+    try:
+        host, port = gateway.address
+        algo = RemoteAlgorithm(build_space(HUNT_PRIORS), HUNT_PRIORS, {"tpu_bo": dict(ALGO)},
+                               GatewayClient(host=host, port=port, timeout=600), name,
+                               seed=seed)
+        x = np.random.default_rng(seed).uniform(size=(N_HISTORY, 6)).astype(np.float32)
+        _observe(algo, x, _hartmann6(x))
+        record = out[seed] = {"rows": [], "states": [], "ms": [], "start": []}
+        for _ in range(rounds):
+            barrier.wait(timeout=900)
+            record["start"].append(time.perf_counter())
+            rows = _rows_of(algo.suggest(Q))
+            record["ms"].append((time.perf_counter() - record["start"][-1]) * 1e3)
+            record["rows"].append(rows)
+            record["states"].append(_state_leaves(gateway._tenants[name].algo._gp_state))
+            _observe(algo, rows, _hartmann6(rows))
+    except BaseException as exc:  # re-raised by the phase, after the join
+        out.setdefault("errors", []).append(exc)
+        barrier.abort()
+
+
+def run_serve_gateway(device, max_width, tenants=SERVE_TENANTS, rounds=SERVE_ROUNDS):
+    """One in-process ``GatewayServer(device, max_width)`` and ``tenants``
+    tenants of seeds 0.. driven by :func:`_serve_tenant` in threads; returns
+    their records, the gateway's stats, each round's wall ms (first start to
+    last reply) and the ``fused_gram`` launches over the rounds."""
+    import threading
+
+    from orion_tpu_torch.ops import gram
+    from orion_tpu_torch.serve.gateway import GatewayServer
+
+    gateway = GatewayServer(window=SERVE_WINDOW, max_width=max_width, device=device)
+    gateway.serve_background()
+    out, barrier = {}, threading.Barrier(tenants)
+    try:
+        gram.fused_gram.launches = 0
+        threads = [threading.Thread(target=_serve_tenant,
+                                    args=(gateway, seed, rounds, barrier, out, f"t{seed}"))
+                   for seed in range(tenants)]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(1800)
+        launches = gram.fused_gram.launches
+        if out.get("errors"):
+            raise out["errors"][0]
+        stats = gateway.stats_snapshot()
+    finally:
+        gateway.shutdown()
+        gateway.server_close()
+    walls = [max(out[s]["start"][r] + out[s]["ms"][r] / 1e3 for s in range(tenants))
+             - min(out[s]["start"][r] for s in range(tenants)) for r in range(rounds)]
+    return {"records": out, "stats": stats, "round_ms": [w * 1e3 for w in walls],
+            "launches": launches}
+
+
+def run_serve_coalesced(device):
+    """(a) Eight tenants through one gateway of ``max_width=8``, then the
+    same seeds through one of ``max_width=1`` (each served alone): rows and
+    GPState of every tenant and round bitwise equal, one dispatch of width
+    8 per round launching ``fused_gram`` once a tenant, the step graphs
+    holding only the standalone round's signature (launched at the main
+    shape) and the pool no larger after the coalesced gateway than after
+    the one served alone.  The plan-prep cache's hit and miss cost over
+    both gateways' rounds (the whole of ``make_fused_plan``, its draws
+    included)."""
+    from orion_tpu_torch.algo import tpu_bo as tbo
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+
+    tbo.reset_plan_prep_stats()
+    coalesced = run_serve_gateway(device, max_width=SERVE_TENANTS)
+    pool_coalesced = STEP_GRAPHS.pool_bytes()
+    alone = run_serve_gateway(device, max_width=1)
+    pool_alone = STEP_GRAPHS.pool_bytes()
+    equal_rows = [[bool(np.array_equal(coalesced["records"][s]["rows"][r],
+                                       alone["records"][s]["rows"][r]))
+                   for r in range(SERVE_ROUNDS)] for s in range(SERVE_TENANTS)]
+    equal_states = [[all(_bitwise_equal(a, b) for a, b in zip(
+        coalesced["records"][s]["states"][r], alone["records"][s]["states"][r]))
+        for r in range(SERVE_ROUNDS)] for s in range(SERVE_TENANTS)]
+    signatures = [{"q": e.statics["q"], "capture_ms": e.capture_ms,
+                   "instantiate_ms": e.instantiate_ms, "graph_nodes": e.graph_nodes,
+                   "pool_bytes": e.pool_bytes, "launches_in_graph": len(e.launches),
+                   "launch_shapes": sorted({"x".join(map(str, launch[:3]))
+                                            for launch in e.launches})}
+                  for _dev, _sig, e in STEP_GRAPHS.entries() if e.graph is not None]
+    suggestions = SERVE_TENANTS * Q
+
+    def rate(run):
+        return {"first_round_ms": run["round_ms"][0], "round_ms": run["round_ms"],
+                "suggestions_per_s": suggestions * (SERVE_ROUNDS - 1)
+                / (sum(run["round_ms"][1:]) / 1e3)}
+
+    out = {"tenants": SERVE_TENANTS, "rounds": SERVE_ROUNDS, "q": Q,
+           "widths": coalesced["stats"]["widths"], "alone_widths": alone["stats"]["widths"],
+           "dispatches": coalesced["stats"]["dispatches"],
+           "alone_dispatches": alone["stats"]["dispatches"],
+           "signatures": signatures, "pool_bytes_coalesced": pool_coalesced,
+           "pool_bytes_alone": pool_alone, "plan_prep": tbo.plan_prep_stats(),
+           "coalesced": rate(coalesced), "alone": rate(alone),
+           "rows_equal": equal_rows, "states_equal": equal_states,
+           "fused_gram_launches": coalesced["launches"],
+           "alone_fused_gram_launches": alone["launches"]}
+    main = "x".join(map(str, MAIN_SHAPE))
+    if (coalesced["stats"]["widths"] != {str(SERVE_TENANTS): SERVE_ROUNDS}
+            or alone["stats"]["widths"] != {"1": SERVE_TENANTS * SERVE_ROUNDS}
+            or not all(map(all, equal_rows)) or not all(map(all, equal_states))
+            or len(signatures) != 1 or signatures[0]["launch_shapes"] != [main]
+            or pool_coalesced != pool_alone
+            or coalesced["launches"] != SERVE_TENANTS * SERVE_ROUNDS
+            or alone["launches"] != SERVE_TENANTS * SERVE_ROUNDS):
+        raise AssertionError(f"serve (a): {out}")
+    return out
+
+
+class _ServeProcess:
+    """``orion-tpu-torch serve`` as a subprocess (its own session): started
+    on ``port`` with ``--persist``, stopped by SIGINT (its final snapshot)
+    or killed with its session on the way out."""
+
+    def __init__(self, run_dir, port, persist):
+        self.argv = [sys.executable, "-m", "orion_tpu_torch.cli", "serve", "--host",
+                     "127.0.0.1", "--port", str(port), "--no-auth", "--window-ms",
+                     str(SERVE_WINDOW * 1e3), "--persist", persist]
+        self.run_dir, self.address, self.proc, self.starts = run_dir, ("127.0.0.1", port), \
+            None, 0
+        self.t0 = None
+
+    def launch(self):
+        self.starts += 1
+        log = open(os.path.join(self.run_dir, f"gateway-{self.starts}.log"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(self.argv, env=dict(os.environ, PYTHONPATH=ROOT,
+                                                         PYTHONUNBUFFERED="1"),
+                                     cwd=self.run_dir, stdout=subprocess.PIPE, stderr=log,
+                                     text=True, start_new_session=True)
+        log.close()
+
+    def ready(self, timeout=300):
+        """Wait for the listening line; returns the ms since the launch."""
+        import select
+
+        ready, _, _ = select.select([self.proc.stdout], [], [], timeout)
+        line = self.proc.stdout.readline() if ready else ""
+        if "listening on" not in line:
+            self.kill()
+            raise AssertionError(f"serve: the gateway did not start: {line!r}")
+        return (time.perf_counter() - self.t0) * 1e3
+
+    def start(self, timeout=300):
+        self.launch()
+        return self.ready(timeout)
+
+    def stop(self, timeout=120):
+        self.proc.send_signal(signal.SIGINT)
+        rc = self.proc.wait(timeout)
+        if rc != 0:
+            raise AssertionError(f"serve: the gateway exited {rc} on SIGINT")
+
+    def kill(self):
+        if self.proc is not None and self.proc.poll() is None:
+            os.killpg(self.proc.pid, 9)
+            self.proc.wait()
+
+
+def _watch_workers(procs, timeout):
+    """Wait for ``procs``, sampling each one's ``/dev/nvidia*`` files every
+    0.2 s while it runs and ``nvidia-smi``'s compute apps every 2 s; returns
+    the files seen per worker and the most compute apps seen."""
+    seen = {proc.pid: set() for proc in procs}
+    most_apps, last_apps, t0 = 0, 0.0, time.perf_counter()
+    while any(proc.poll() is None for proc in procs):
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("serve (b): the workers outlived their time limit")
+        for proc in procs:
+            if proc.poll() is None:
+                try:
+                    seen[proc.pid].update(nvidia_files(proc.pid))
+                except (FileNotFoundError, ProcessLookupError):
+                    pass
+        if time.perf_counter() - last_apps >= 2.0:
+            most_apps, last_apps = max(most_apps, len(compute_apps())), time.perf_counter()
+        time.sleep(0.2)
+    return {pid: sorted(files) for pid, files in seen.items()}, most_apps
+
+
+def run_serve_workers(run_dir, device, gateway, max_trials=SERVE_TRIALS, q=CLI_Q,
+                      algo=CLI_ALGO, timeout=600):
+    """(b) Two ``hunt`` workers of two experiments on one SQLite store, each
+    ``max_trials`` past a history of ``HISTORY`` completed through the
+    library, with a ``serve:`` section naming the subprocess ``gateway``
+    and telemetry on: the GP rounds run on the gateway; no worker process
+    opens a ``/dev/nvidia*`` file or adds to the compute apps; ``info``
+    (one experiment and ``--all``) and ``top --json`` show the serve
+    fields, and ``doctor`` over the store exits 0 with DX005, DX007 and
+    DX008 silent."""
+    import yaml
+
+    from orion_tpu_torch.serve.client import GatewayClient
+    from orion_tpu_torch.storage.base import create_storage
+
+    script, _ = write_cli_files(run_dir, algo, name="serve-plain")
+    config = os.path.join(run_dir, "serve.yaml")
+    address = "%s:%d" % gateway.address
+    with open(config, "w") as handle:
+        yaml.safe_dump({"telemetry": True, "algorithms": {"tpu_bo": dict(algo)},
+                        "serve": {"address": address, "timeout": 300}}, handle)
+    db = os.path.join(run_dir, "serve.sqlite")
+    storage = create_storage({"type": "sqlite", "path": db})
+    names, logs, histories = ("serve-a", "serve-b"), {}, {}
+    for seed, name in enumerate(names):
+        logs[name] = os.path.join(run_dir, f"{name}.log")
+        histories[name] = seed_history(storage, name, ["-c", config, "--storage-path", db],
+                                       script, logs[name], device, completed=HISTORY,
+                                       seed=seed)
+    # The gateway creates its CUDA context with its first device work: one
+    # random round of a throwaway tenant before counting, so the count
+    # holds this process and the gateway, and a worker's context would add
+    # to it.
+    warm = GatewayClient(*gateway.address, timeout=300)
+    warm.request("attach", {"tenant": "warm", "algo": {"random": {}}, "priors": HUNT_PRIORS,
+                            "seed": 0})
+    warm.request("suggest", {"tenant": "warm", "num": 1, "req_id": "warm:1"})
+    warm.request("detach", {"tenant": "warm"})
+    apps_before = len(compute_apps())
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(_cli_command(
+        "-n", name, "-c", config, "--storage-path", db, "--pool-size", str(q),
+        "--max-trials", str(HISTORY + max_trials), script, *CLI_PRIORS, "--log", logs[name]),
+        env=env, cwd=run_dir, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        start_new_session=True) for name in names]
+    try:
+        files, most_apps = _watch_workers(procs, timeout)
+        errors = [proc.stderr.read() for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    wall_s = time.perf_counter() - t0
+    failed = [(proc.returncode, err[-3000:]) for proc, err in zip(procs, errors)
+              if proc.returncode != 0]
+    if failed:
+        raise AssertionError(f"serve (b): exit codes and stderr {failed}")
+    completed = {}
+    for name in names:
+        _exp_id, trials = _fetch_trials(storage, name)
+        done, _values, _err = check_cli_trials(f"serve {name}", trials,
+                                               HISTORY + max_trials, device)
+        with open(logs[name]) as handle:
+            executed = handle.read().split()
+        if len(executed) != len(set(executed)):
+            raise AssertionError(f"serve {name}: a trial ran twice")
+        completed[name] = len([t for t in done if t.id not in histories[name]])
+    stats = warm.stats()
+    warm.close()
+    rc_info, info, _ = _cli_output(["info", "-n", names[0], "--storage-path", db])
+    rc_all, info_all, _ = _cli_output(["info", "--all", "-c", config, "--storage-path", db])
+    rc_top, top, _ = _cli_output(["top", "-n", names[0], "--storage-path", db, "--json"])
+    serve_lines = [line for line in info.splitlines() if "serve_width" in line]
+    fleet_line = [line for line in info_all.splitlines() if line.startswith("serve: ")]
+    top_serve = [{k: (w.get("health") or {}).get(k)
+                  for k in ("serve_width", "serve_queue_depth", "serve_tenants")}
+                 for w in json.loads(top)["workers"].values()] if rc_top == 0 else None
+    doctors = {}
+    for name in names:
+        rc, body, ms = _cli_output(["doctor", "-n", name, "--storage-path", db, "--json"])
+        report = json.loads(body)
+        doctors[name] = {"exit": rc, "ms": ms, "status": report["status"],
+                         "findings": [(f["rule"], f["severity"]) for f in report["findings"]]}
+    out = {"workers": len(names), "max_trials": max_trials, "q": q, "wall_s": wall_s,
+           "completed": completed, "trials_per_s": sum(completed.values()) / wall_s,
+           "nvidia_files": files, "compute_apps_before": apps_before,
+           "compute_apps_most": most_apps, "gateway_widths": stats["widths"],
+           "gateway_dispatches": stats["dispatches"], "gateway_tenants": stats["tenants"],
+           "info_serve": serve_lines[-1:], "info_fleet": fleet_line, "top_serve": top_serve,
+           "doctor": doctors}
+    if (any(files.values()) or most_apps > apps_before
+            or any(n < max_trials for n in completed.values())
+            or rc_info != 0 or rc_all != 0 or not serve_lines or not fleet_line
+            or not top_serve or not any(w["serve_width"] for w in top_serve)
+            or any(d["exit"] != 0 or {r for r, _ in d["findings"]} & set(SERVE_DX)
+                   for d in doctors.values())):
+        raise AssertionError(f"serve (b): {out}")
+    return out
+
+
+def _persist_tenant(address, name, seed, rounds):
+    """A ``RemoteAlgorithm`` of the main path's config and seeded history
+    on ``address``: ``rounds`` rounds of ``suggest(Q)`` and observe; returns
+    the tenant and each round's rows."""
+    from orion_tpu_torch.serve.client import GatewayClient, RemoteAlgorithm
+    from orion_tpu_torch.space.dsl import build_space
+
+    algo = RemoteAlgorithm(build_space(HUNT_PRIORS), HUNT_PRIORS, {"tpu_bo": dict(ALGO)},
+                           GatewayClient(*address, timeout=600), name, seed=seed)
+    x = np.random.default_rng(seed).uniform(size=(N_HISTORY, 6)).astype(np.float32)
+    _observe(algo, x, _hartmann6(x))
+    return algo, [_round(algo) for _ in range(rounds)]
+
+
+def _round(algo):
+    rows = _rows_of(algo.suggest(Q))
+    _observe(algo, rows, _hartmann6(rows))
+    return rows
+
+
+def run_serve_persist(device, gateway, seed=3):
+    """(c) A tenant's round through the subprocess gateway; SIGINT (its
+    final snapshot), a restart with the same ``--persist`` file on the same
+    port; the tenant's next q=1024 round bitwise equal to that of a gateway
+    in this process never stopped."""
+    from orion_tpu_torch.serve.gateway import GatewayServer
+
+    algo, rows = _persist_tenant(gateway.address, "persist", seed, 1)
+    t0 = time.perf_counter()
+    gateway.stop()
+    restart_ms = gateway.start()
+    after = _round(algo)
+    down_ms = (time.perf_counter() - t0) * 1e3
+    stats = algo._client.stats()["per_tenant"]["persist"]
+    never = GatewayServer(window=0.01, device=device)
+    never.serve_background()
+    try:
+        _, want = _persist_tenant(never.address, "persist", seed, 2)
+    finally:
+        never.shutdown()
+        never.server_close()
+    out = {"restart_ms": restart_ms, "restart_to_round_ms": down_ms,
+           "first_round_equal": bool(np.array_equal(rows[0], want[0])),
+           "round_after_restart_equal": bool(np.array_equal(after, want[1])),
+           "n_observed": stats["n_observed"], "reconnects": algo._client.reconnects}
+    if (not out["first_round_equal"] or not out["round_after_restart_equal"]
+            or stats["n_observed"] != N_HISTORY + 2 * Q):
+        raise AssertionError(f"serve (c): {out}")
+    return out
+
+
+def phase_serve(device, tmp):
+    """The suggest gateway on the card: (a) eight tenants coalesced into one
+    dispatch against the same tenants served alone, (b) two ``hunt``
+    workers through an ``orion-tpu-torch serve`` subprocess (launched
+    first, so that its start-up overlaps (a)), (c) that gateway restarted
+    from its ``--persist`` file.  Returns ``fused_gram``'s launches in this
+    process over the phase (zeroed just before, read just after; the
+    subprocess gateway's own are not counted here).
+
+    The step graphs' cache starts empty (``STEP_GRAPHS.reset()``, as
+    ``diagnosis`` (b) resets it), so (a)'s pool check covers the phase's
+    own signatures.  The process-wide pool before the reset (in the whole
+    script, ``diagnosis`` (b)'s fork of ten signatures above all) is
+    printed with (a)'s line, against the main signature's pool alone (the
+    phase's first capture, into the emptied pool): not held to
+    ``POOL_BOUND``, which that fork's pool exceeds (``PERF.md`` §7)."""
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+    from orion_tpu_torch.ops import gram
+
+    run_dir = os.path.join(tmp, "serve")
+    os.makedirs(run_dir)
+    process_pool = {"signatures": len(STEP_GRAPHS.entries()),
+                    "pool_bytes": STEP_GRAPHS.pool_bytes()}
+    STEP_GRAPHS.reset()
+    launches = {}
+    gateway = _ServeProcess(run_dir, _free_port(), os.path.join(run_dir, "gateway.pkl"))
+    try:
+        gateway.launch()
+        coalesced = run_serve_coalesced(device)
+        launches["coalesced"] = coalesced["fused_gram_launches"]
+        launches["alone"] = coalesced["alone_fused_gram_launches"]
+        process_pool["over_main_signature_alone"] = (
+            process_pool["pool_bytes"] / coalesced["signatures"][0]["pool_bytes"])
+        emit("serve", leg="coalesced", process_pool_before_reset=process_pool, **coalesced)
+        gateway.ready()
+        workers = run_serve_workers(run_dir, device, gateway)
+        emit("serve", leg="workers", **workers)
+        gram.fused_gram.launches = 0
+        persist = run_serve_persist(device, gateway)
+        launches["persist"] = gram.fused_gram.launches
+        emit("serve", leg="persist", **persist)
+    finally:
+        gateway.kill()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3814,6 +4261,7 @@ def main():
         day2_launches = run("day2", phase_day2, device, tmp, plane)
         device_plane_launches = run("device_plane", phase_device_plane, device, tmp)
         diagnosis_launches = run("diagnosis", phase_diagnosis, device, tmp)
+        serve_launches = run("serve", phase_serve, device, tmp)
     emit("seconds", **seconds, phases=sum(seconds.values()))
 
     def case(shape):
@@ -3830,7 +4278,7 @@ def main():
                      + sum(cli_launches.values()) + evc_launches
                      + sum(telemetry_launches.values()) + sum(network_launches.values())
                      + sum(day2_launches.values()) + device_plane_launches
-                     + sum(diagnosis_launches.values())),
+                     + sum(diagnosis_launches.values()) + sum(serve_launches.values())),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
                              "hunt": hunt_launches, "cli": sum(cli_launches.values()),
                              "cli_runs": cli_launches, "evc": evc_launches,
@@ -3841,7 +4289,9 @@ def main():
                              "day2": sum(day2_launches.values()), "day2_runs": day2_launches,
                              "device_plane": device_plane_launches,
                              "diagnosis": sum(diagnosis_launches.values()),
-                             "diagnosis_runs": diagnosis_launches},
+                             "diagnosis_runs": diagnosis_launches,
+                             "serve": sum(serve_launches.values()),
+                             "serve_runs": serve_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -19,9 +19,12 @@ the ``fused_gram`` kernel on the 8192 x 512 x 51 cross-gram.  ``prewarm``
 captures the next history bucket's round ahead of the crossing, as in
 ``tpu_bo``.
 
-Not ported (the serve gateway's hooks, ROADMAP queue A item 8):
-``fused_step_plan``, ``consume_fused_step``, ``finish_fused_rows``.
-``use_mesh=True`` raises.
+The serve gateway's hooks (``fused_step_plan``, ``consume_fused_step``,
+``finish_fused_rows`` and the ``suggest`` override that serves a stash of
+promotions first) split a round into its plan, the device round the
+gateway may dispatch with other tenants', and the host's bracket assignment,
+drawing from both streams in :meth:`suggest`'s order.  ``use_mesh=True``
+raises (ROADMAP queue A item 10).
 """
 
 import numpy as np
@@ -151,6 +154,11 @@ class ASHABO(ASHA):
         # shrinks when stalled.
         self._sigma = local_sigma
         self._best_seen = np.inf
+        # A gateway round's carry (see `fused_step_plan`): the promotions it
+        # already consumed and the bracket uniforms drawn after them and
+        # before the plan's draws; `finish_fused_rows` consumes both.
+        self._pending_promoted = None
+        self._pending_bracket_u = None
 
     # The fitted GP state is immutable-by-rebinding; `_hist` and `_host`
     # implement copy-on-write in their own __deepcopy__; the prewarmer's
@@ -299,6 +307,67 @@ class ASHABO(ASHA):
         rows, state = run_fused_plan(self._gp_plan(num))
         self._gp_state = state
         return rows
+
+    # --- the serve gateway's hooks -------------------------------------------
+    def suggest(self, num=1):
+        # A gateway round that fell back to the plain path after consuming
+        # its promotions (a promotions-only round, or a failed dispatch)
+        # serves that stash first: `_promote_one` already reserved those
+        # next-rung slots.  The stash is exactly what `suggest` would have
+        # emitted first, so the stream is the standalone one.
+        stash, self._pending_promoted = self._pending_promoted, None
+        self._pending_bracket_u = None
+        if not stash:
+            return super().suggest(num)
+        out = list(stash)
+        while len(out) < num:
+            promoted = self._promote_one()
+            if promoted is None:
+                break
+            out.append(promoted)
+        remaining = num - len(out)
+        if remaining:
+            out.extend(self._sample_new(remaining))
+        return out or None
+
+    def fused_step_plan(self, num):
+        """This round's GP part as a plan, or None when there is no device
+        work (the random-init phase, or a promotions-only round).  In
+        :meth:`suggest`'s order: the pending promotions are consumed into a
+        stash, then the bracket uniforms of the fresh points are drawn
+        (the random stream), then the plan's draws (the model stream).
+        Consuming, as ``tpu_bo``'s: the holder runs the plan and hands its
+        rows to :meth:`finish_fused_rows`."""
+        if self._host.count < self.n_init:
+            return None
+        promoted = self._pending_promoted or []
+        while len(promoted) < num:
+            point = self._promote_one()
+            if point is None:
+                break
+            promoted.append(point)
+        self._pending_promoted = promoted
+        remaining = num - len(promoted)
+        if remaining <= 0:
+            return None
+        self._pending_bracket_u = torch.rand((remaining,), generator=self._generator,
+                                             device=self.device)
+        return self._gp_plan(remaining)
+
+    def consume_fused_step(self, state):
+        """Take the GPState a plan's round produced."""
+        self._gp_state = state
+
+    def finish_fused_rows(self, rows):
+        """The gateway's demux: the round's cube rows become full params
+        through the same bracket assignment, fidelity stamp and rung
+        pre-registration as :meth:`_sample_new`, behind the round's stashed
+        promotions, where :meth:`suggest` puts them."""
+        bracket_u, self._pending_bracket_u = self._pending_bracket_u, None
+        promoted, self._pending_promoted = self._pending_promoted, None
+        if bracket_u is None:
+            raise RuntimeError("finish_fused_rows without a pending fused_step_plan")
+        return list(promoted or ()) + self._assign_new_points(rows, bracket_u)
 
     # --- health --------------------------------------------------------------
     def health_record(self):

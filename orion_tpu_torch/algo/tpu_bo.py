@@ -37,9 +37,13 @@ The bucket prewarmer (``prewarm``, ``prewarm_fill``;
 :func:`maybe_prewarm_fused_step`) captures the next pow-2 history bucket's
 signature on a background thread before the history gets there.
 
-Not ported: the serve gateway's plan-prep caches (``PlanPrepToken``,
-``_PLAN_PREP_CACHE``; ROADMAP queue A item 8) and the device mesh
-(``use_mesh=True`` raises ``NotImplementedError``; item 10).
+:func:`make_fused_plan` caches the signature-invariant part of a plan per
+(shape bucket, statics, device); the serve gateway (``orion_tpu_torch.serve``)
+builds its tenants' plans through the same function and dispatches
+same-signature plans together.
+
+Not ported: the device mesh (``use_mesh=True`` raises
+``NotImplementedError``; ROADMAP queue A item 10).
 """
 
 import time
@@ -485,28 +489,96 @@ def plan_signature(shape, statics):
     return (tuple(shape), tuple(sorted((k, str(v)) for k, v in statics.items())))
 
 
+class _PlanPrep(NamedTuple):
+    """The signature-invariant part of a :class:`FusedPlan`, cached per
+    distinct (shape bucket, statics, device) so a steady round skips
+    rebuilding it: the statics dict, the stringified signature, the cold
+    start's hypers and the default tr_length, both already on the device.
+    (The reference's ``split_fit``/``host_fit_steps`` belong to the
+    multi-device mesh and wait for it, ROADMAP queue A item 10.)"""
+
+    statics: dict
+    signature: tuple
+    cold_hypers: object
+    default_tr: object
+
+
+_PLAN_PREP_CACHE = {}
+_PLAN_PREP_STATS = {"hits": 0, "misses": 0, "hit_ns": 0, "miss_ns": 0}
+
+
+def plan_prep_stats():
+    """The prep cache's effect: mean prep cost on a miss and on a hit (the
+    whole of :func:`make_fused_plan`, the round's draws included), and the
+    microseconds the cache saved overall."""
+    stats = _PLAN_PREP_STATS
+    hits, misses = stats["hits"], stats["misses"]
+    hit_us = stats["hit_ns"] / 1e3 / hits if hits else 0.0
+    miss_us = stats["miss_ns"] / 1e3 / misses if misses else 0.0
+    return {
+        "hits": hits,
+        "misses": misses,
+        "hit_us_mean": hit_us,
+        "miss_us_mean": miss_us,
+        "saved_us": hits * max(0.0, miss_us - hit_us),
+    }
+
+
+def reset_plan_prep_stats():
+    _PLAN_PREP_STATS.update(hits=0, misses=0, hit_ns=0, miss_ns=0)
+
+
 def make_fused_plan(generator, x, y, mask, best_x, warm_state, num, *, tr_length=None,
                     **step_kw):
     """This round as a :class:`FusedPlan`: its draws from ``generator`` (the
     model stream), the warm hypers (or the cold start), tr_length as a
     device scalar, and the statics of :func:`plan_statics`.  ``step_kw`` is
-    the algorithm's ``_step_kw()`` without ``tr_length``."""
-    statics = plan_statics(num, warm_state is not None, **step_kw)
+    the algorithm's ``_step_kw()`` without ``tr_length``.
+
+    The signature-invariant leaves are cached per :class:`_PlanPrep` key,
+    which folds in everything they depend on (``warm_state is None``
+    included), so a hit cannot change the plan.  Re-passing the cached
+    tensors round after round is safe: the step graphs copy a round's
+    inputs into their own static buffers, and :func:`_suggest_step` writes
+    none of its inputs.  The standalone round (:func:`run_fused_plan`) and
+    the gateway's coalesced dispatch (``serve.coalesce``) both take plans
+    built here."""
+    t0 = time.perf_counter_ns()
+    warm_is_none = warm_state is None
+    prep_key = (tuple(x.shape), _next_pow2(num, floor=8), warm_is_none, x.device,
+                tuple(sorted(step_kw.items())))
+    prep = _PLAN_PREP_CACHE.get(prep_key)
+    hit = prep is not None
+    if not hit:
+        statics = plan_statics(num, not warm_is_none, **step_kw)
+        prep = _PlanPrep(
+            statics,
+            plan_signature(x.shape, statics),
+            init_hypers(x.shape[1], device=x.device) if warm_is_none else None,
+            torch.full((), 1.0, dtype=torch.float32, device=x.device),
+        )
+        _PLAN_PREP_CACHE[prep_key] = prep
+    statics = prep.statics
     width = x.shape[1]
-    device = x.device
     with record_function("suggest.draws"):
         draws = sample_suggest_draws(
             generator, q=statics["q"], n_candidates=statics["n_candidates"],
             d_free=width - statics["fixed_tail_cols"], d=width, acq=statics["acq"],
             local_frac=statics["local_frac"], trust_region=statics["trust_region"],
-            tr_perturb_dims=statics["tr_perturb_dims"], device=device,
+            tr_perturb_dims=statics["tr_perturb_dims"], device=x.device,
         )
-    hypers = init_hypers(width, device=device) if warm_state is None else warm_state.hypers
-    # torch.full, not torch.tensor: a fill on the device, no host copy.
-    tr = torch.full((), 1.0 if tr_length is None else float(tr_length), dtype=torch.float32,
-                    device=device)
+    hypers = prep.cold_hypers if warm_is_none else warm_state.hypers
+    if tr_length is None:
+        tr = prep.default_tr
+    else:
+        # torch.full, not torch.tensor: a fill on the device, no host copy.
+        tr = torch.full((), float(tr_length), dtype=torch.float32, device=x.device)
     arrays = (draws, x, y, mask, best_x, hypers, tr)
-    return FusedPlan(plan_signature(x.shape, statics), arrays, statics, int(num))
+    plan = FusedPlan(prep.signature, arrays, statics, int(num))
+    count, ns = ("hits", "hit_ns") if hit else ("misses", "miss_ns")
+    _PLAN_PREP_STATS[count] += 1
+    _PLAN_PREP_STATS[ns] += time.perf_counter_ns() - t0
+    return plan
 
 
 def flop_analysis_fn(arrays, statics):

@@ -1,7 +1,6 @@
 """Shared CLI argument groups and experiment bootstrapping (port of
 ``orion_tpu/cli/base.py``, with the ``--all`` fleet helpers over every
-experiment and the sharded topology; the serve-fleet probe waits for the
-gateway, ROADMAP queue A item 8).  ``load_cli_config`` layers the
+experiment, the sharded topology and the serve fleet).  ``load_cli_config`` layers the
 ``telemetry:``, ``metrics_port:`` and ``doctor_interval:`` keys onto the
 process, as the reference does.
 
@@ -223,6 +222,88 @@ def describe_storage_topology(probe=False):
         f"vnodes={topology['vnodes']} replica_reads="
         f"{'on' if topology['replica_reads'] else 'off'}"
     )
+
+
+def describe_serve_fleet(serve_config, timeout=2.0):
+    """One-line gateway-fleet summary for the ``--all`` fleet views
+    (``top``/``info``): each configured gateway probed with a single
+    ``fleet`` request per frame — answered inline by the handler thread,
+    never queued behind the dispatcher backlog, so the header renders
+    even when a member is saturated.  Per member: tenant count, queue
+    depth, membership epoch, and any in-flight handoff state
+    (``FENCED``/``moved``); a dead member renders ``DOWN`` instead of
+    erasing the row.  Works against a pre-fleet single gateway too (it
+    answers as a one-member fleet).  Returns None when the config names
+    no gateway."""
+    if not serve_config:
+        return None
+    from orion_tpu_torch.serve.client import GatewayClient, parse_address
+    from orion_tpu_torch.serve.fleet import parse_serve_addresses
+    from orion_tpu_torch.storage.base import resolve_wire_secret
+    from orion_tpu_torch.utils.exceptions import DatabaseError
+
+    try:
+        addresses = parse_serve_addresses(serve_config)
+        secret = resolve_wire_secret(
+            serve_config, env_prefix="ORION_SERVE", what="serve gateway"
+        )
+    except DatabaseError:
+        return None
+
+    results = {}
+
+    def _probe(address):
+        host, port = parse_address(address)
+        client = GatewayClient(
+            host=host,
+            port=port,
+            secret=secret,
+            timeout=timeout,
+            retry={"max_attempts": 1, "deadline": timeout},
+        )
+        try:
+            results[address] = client.fleet()
+        except Exception as exc:
+            results[address] = {"error": str(exc)}
+        finally:
+            client.close()
+
+    import threading
+
+    threads = [
+        threading.Thread(target=_probe, args=(address,), daemon=True)
+        for address in addresses
+    ]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout + 1.0)
+
+    parts = []
+    epochs = set()
+    for index, address in enumerate(addresses):
+        snap = results.get(address) or {"error": "no answer"}
+        part = f"g{index}={address}"
+        if "error" in snap:
+            part += " DOWN"
+        else:
+            part += f" t:{snap.get('tenants', 0)} q:{snap.get('queue_depth', 0)}"
+            epochs.add(int(snap.get("epoch", 0)))
+            if snap.get("fenced"):
+                part += f" FENCED:{snap['fenced']}"
+            if snap.get("moved"):
+                part += f" moved:{snap['moved']}"
+        parts.append(part)
+    epoch = ""
+    if epochs:
+        # Members disagreeing on the epoch is the membership-drift smell
+        # DX007's runbook sends operators here to check.
+        epoch = (
+            f" epoch={epochs.pop()}"
+            if len(epochs) == 1
+            else " epoch=SPLIT"
+        )
+    return f"serve: {len(addresses)} gateway(s) [{', '.join(parts)}]{epoch}"
 
 
 def build_from_args(args, need_user_args=True, allow_create=True, view=False):

@@ -71,7 +71,8 @@ def add_subparser(subparsers):
         choices=("cuda", "cpu"),
         default="cuda",
         help="device of the algorithm (default cuda; the command fails where "
-        "no CUDA device is present unless cpu is given)",
+        "no CUDA device is present unless cpu is given).  Ignored with a "
+        "serve: section: the gateway's algorithm runs on the gateway's card",
     )
     parser.set_defaults(func=main)
     return parser
@@ -143,13 +144,22 @@ def _run_worker(experiment, parser, args, device):
 
 
 def main(args):
+    import torch
+
+    from orion_tpu_torch.cli.base import load_cli_config
     from orion_tpu_torch.device import resolve_device
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as exc:
-        print(f"ERROR: {exc}", file=sys.stderr)
-        return 1
+    if load_cli_config(args).get("serve"):
+        # The suggest gateway owns the card: a worker that drives a gateway
+        # tenant is a host process and never calls into CUDA (not even to
+        # ask whether a card is present).
+        device = torch.device("cpu")
+    else:
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as exc:
+            print(f"ERROR: {exc}", file=sys.stderr)
+            return 1
     experiment, parser = build_from_args(args)
     experiment.instantiate(device=device)
     workers = []

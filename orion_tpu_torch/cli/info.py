@@ -6,8 +6,8 @@ commandline, config, algorithm, space, metadata, refers (EVC lineage), and
 stats, plus the producer's timings, the merged telemetry and health
 snapshots with each snapshot's host/device ratio against the host budget,
 the compiler plane's digest (CUDA-graph captures), and the doctor's
-verdict.  The serve fleet's section, a part the port does not have yet,
-prints one line naming its ROADMAP queue A item (8) instead of its body.
+verdict; ``--all`` heads its list with the storage topology and the serve
+fleet (one ``fleet`` probe per configured gateway).
 """
 
 import time
@@ -23,9 +23,6 @@ from orion_tpu_torch.core.producer import Producer
 #: A worker's snapshot is stale past three metrics flush intervals (the
 #: reference's ``cli/top.py::STALE_AFTER``).
 STALE_AFTER = 3.0 * Producer.METRICS_FLUSH_INTERVAL
-
-#: One line for the section whose part is not ported yet.
-SERVE_NOT_PORTED = "serve: not ported yet (the serve fleet is ROADMAP queue A item 8)"
 
 
 def add_subparser(subparsers):
@@ -420,15 +417,22 @@ def main(args):
         # Fleet view over a sharded control plane: say which topology
         # answered (build_all_experiments resolved through the router, so
         # experiments from EVERY shard are in the list).
-        from orion_tpu_torch.cli.base import describe_storage_topology, load_cli_config
+        from orion_tpu_torch.cli.base import (
+            describe_serve_fleet,
+            describe_storage_topology,
+            load_cli_config,
+        )
 
         topology = describe_storage_topology(probe=True)
         if topology is not None:
             print(topology)
-        # The serve-plane twin of the storage header probes each configured
-        # gateway; the gateway is not ported yet.
-        if load_cli_config(args).get("serve"):
-            print(SERVE_NOT_PORTED)
+        # Serve-plane twin of the storage header: one `fleet` probe per
+        # configured gateway (per-member tenant counts, queue depth, and
+        # the membership epoch — epoch=SPLIT is the drift smell DX007's
+        # runbook starts from).
+        gateways = describe_serve_fleet(load_cli_config(args).get("serve"))
+        if gateways is not None:
+            print(gateways)
         if not experiments:
             print("no experiments in storage")
             return 0

@@ -12,8 +12,8 @@ experiment.
 
 The doctor's badge leads each frame, from the snapshot's ``doctor`` block
 (the rule catalog of ``orion_tpu_torch.diagnosis`` over the docs the frame
-already fetched).  Left out: the serve-gateway probe of ``--all`` (ROADMAP
-queue A item 8; a configured ``serve`` section prints one line naming it).
+already fetched).  ``--all`` heads its table with the storage topology and
+the serve fleet (``describe_serve_fleet``: one ``fleet`` probe per gateway).
 """
 
 import json
@@ -243,7 +243,7 @@ def snapshot_top(experiment, now=None):
                 "rung_occupancy",
                 "model_tier",
                 "algo",
-                # Serve-gateway fields (ROADMAP queue A item 8): rounds produced
+                # Serve-gateway fields (orion_tpu_torch.serve): rounds produced
                 # through a gateway report their coalesce width and the
                 # gateway queue depth alongside the algorithm health.
                 "serve_width",
@@ -450,8 +450,7 @@ def render_fleet(snaps, serve_config=None):
         f"{'best_y':>12} {'retry':>5} {'reconn':>6}"
     )
     lines = [f"orion-tpu-torch top --all   experiments: {len(snaps)}"]
-    from orion_tpu_torch.cli.base import describe_storage_topology
-    from orion_tpu_torch.cli.info import SERVE_NOT_PORTED
+    from orion_tpu_torch.cli.base import describe_serve_fleet, describe_storage_topology
 
     # probe=True: the fleet header shows per-shard epoch + replication lag
     # (one tiny seq request per node per frame — the operator's first
@@ -462,10 +461,12 @@ def render_fleet(snaps, serve_config=None):
         # The fleet the table shows spans every shard (the router resolved
         # it); the header says so.
         lines.append(topology)
-    # The serve plane's probe comes with the gateway (ROADMAP queue A item
-    # 8): a configured one is named, not probed.
-    if serve_config:
-        lines.append(SERVE_NOT_PORTED)
+    # The serve plane gets the same treatment: one `fleet` probe per
+    # gateway per frame (answered inline by the handler, so it renders
+    # even when a member's dispatcher is saturated).
+    gateways = describe_serve_fleet(serve_config)
+    if gateways is not None:
+        lines.append(gateways)
     lines += ["", header, "-" * len(header)]
     for snap in snaps:
         rounds = sum(row["rounds"] for row in snap["workers"].values())

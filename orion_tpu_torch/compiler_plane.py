@@ -125,7 +125,9 @@ def device_hbm_capacity(device=None):
     brings the driver up by itself."""
     import torch
 
-    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+    # is_initialized first: is_available would call into the driver of a
+    # process (a gateway's worker) that never touched the card.
+    if not torch.cuda.is_initialized():
         return None
     try:
         index = torch.device(device).index if device is not None else None

@@ -123,11 +123,15 @@ DEFAULTS = {
     # ORION_TPU_DOCTOR_INTERVAL so that `hunt --n-workers` children
     # inherit it.
     "doctor_interval": None,
-    # Suggest gateway: a worker-level knob, never part of the stored
-    # experiment identity.  None = local algorithm instance (the default);
-    # a section (or the ORION_SERVE_ADDRESS / ORION_SERVE_ADDRESSES env
-    # vars) asks for the gateway, which Experiment.instantiate refuses
-    # until it is ported (ROADMAP queue A item 8).
+    # Suggest gateway (orion_tpu_torch.serve): a worker-level knob, never
+    # part of the stored experiment identity.  None = local algorithm
+    # instance (the default); {"address": "host:port", optional "retry":
+    # {...}, "quotas": {"max_inflight": n, "max_q": n}, "timeout": s} =
+    # drive this experiment's suggest/observe through the shared gateway
+    # (the ORION_SERVE_ADDRESS env var sets the address alone).  A fleet is
+    # the same section with "addresses": [host:port, ...] (env:
+    # ORION_SERVE_ADDRESSES, comma-separated): tenants are placed on
+    # members by consistent hash.
     "serve": None,
 }
 

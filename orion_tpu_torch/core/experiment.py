@@ -8,11 +8,11 @@ time, lies, completed updates), `is_done`/`is_broken` from DB counts, stats,
 and `configure()` with race-condition handling.  Branching/conflict logic
 lives in `orion_tpu_torch.evc` and is invoked from the builder, not here.
 
-Not ported yet: a ``serve`` section's remote algorithm, which raises
-:class:`NotImplementedError` naming ROADMAP queue A item 8.
 ``instantiate(device=None)`` builds the algorithm on ``cuda`` and raises
 where no card is present; the CPU runs only when ``device="cpu"`` is
-passed.
+passed.  With a ``serve`` section the algorithm is a
+:class:`~orion_tpu_torch.serve.client.RemoteAlgorithm` on the suggest
+gateway instead, and the worker never touches the card.
 """
 
 import logging
@@ -78,8 +78,7 @@ class Experiment:
         self.algorithm = None
         self.strategy = None
         # Worker-level serving knob (never stored identity): a ``serve:``
-        # section asks for a gateway-backed remote algorithm, which the
-        # port does not have yet (instantiate raises).
+        # section makes the algorithm a gateway-backed RemoteAlgorithm.
         self.serve_config = config.get("serve")
 
     # --- instantiation ------------------------------------------------------
@@ -91,13 +90,29 @@ class Experiment:
         if self.space is None:
             raise ValueError(f"Experiment {self.name} has no search space")
         if self.serve_config:
-            raise NotImplementedError(
-                "a serve section (remote algorithm on the suggest gateway) "
-                "is not ported yet: ROADMAP queue A item 8, old item 7"
+            # A gateway tenant keyed by (name, version, host:pid): one
+            # gateway-side instance PER WORKER, as local semantics have it
+            # (each worker's producer observes the full history into its
+            # own instance).  ``device`` is the gateway's business: this
+            # path creates no CUDA context in the worker.
+            import os
+            import socket
+
+            from orion_tpu_torch.serve.client import connect_remote_algorithm
+
+            worker = f"{socket.gethostname()}:{os.getpid()}"
+            self.algorithm = connect_remote_algorithm(
+                self.space,
+                self.priors,
+                self.algo_config,
+                self.serve_config,
+                tenant=f"{self.name}-v{self.version}@{worker}",
+                seed=seed,
             )
-        self.algorithm = create_algo(
-            self.space, self.algo_config, seed=seed, device=device
-        )
+        else:
+            self.algorithm = create_algo(
+                self.space, self.algo_config, seed=seed, device=device
+            )
         self.strategy = create_strategy(self.strategy_config)
         return self
 

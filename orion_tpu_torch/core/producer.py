@@ -33,10 +33,9 @@ snapshot at most every :attr:`Producer.METRICS_FLUSH_INTERVAL` seconds.
 
 Before each metrics snapshot the device-memory sampler runs
 (``orion_tpu_torch.devmem.sample_memory``), and each health record carries
-the ``mem_bytes`` stamp of its gauge, as in the reference.  Left out: the
-serve-placement gauges (``_sample_serve_placement``, reference
-``producer.py:350-374``), which come with ``serve`` (ROADMAP queue A item
-8).
+the ``mem_bytes`` stamp of its gauge, as in the reference; so do the
+serve-placement gauges of a fleet-served algorithm
+(:meth:`Producer._sample_serve_placement`).
 """
 
 import copy
@@ -375,12 +374,33 @@ class Producer:
                     # gate (rate-limited again inside), so a snapshot never
                     # ships stale memory numbers.
                     sample_memory(force=force_metrics)
+                    self._sample_serve_placement()
                     self.experiment.storage.record_metrics(
                         self.experiment, TELEMETRY.snapshot()
                     )
                     self._last_metrics_flush = now
         except Exception:  # pragma: no cover - read-only/remote storage quirks
             log.debug("could not record telemetry", exc_info=True)
+
+    def _sample_serve_placement(self):
+        """Mirror the remote algorithm's fleet placement into gauges
+        (fleet-served experiments only: ``placement()`` is None for local
+        algorithms and single-gateway tenants).  Rides the metrics flush,
+        so `orion-tpu-torch top`/`info` show which gateway this worker's
+        tenant lives on and how often it failed over."""
+        placement = getattr(self.algorithm, "placement", None)
+        if placement is None:
+            return
+        try:
+            record = placement()
+        except Exception:  # pragma: no cover - observability never breaks
+            return
+        if not record:
+            return
+        TELEMETRY.set_gauge("serve.client.fleet_epoch", float(record.get("epoch") or 0))
+        TELEMETRY.set_gauge("serve.client.fleet_members", float(record.get("members") or 0))
+        TELEMETRY.set_gauge("serve.client.failovers", float(record.get("failovers") or 0))
+        TELEMETRY.set_gauge("serve.client.adoptions", float(record.get("adoptions") or 0))
 
     def _update_naive_algorithm(self, incomplete):
         """Naive algo = deepcopy of real + lies for in-flight trials

@@ -83,7 +83,9 @@ def device_stats():
     inject allocator statistics through."""
     import torch
 
-    if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+    # is_initialized first: is_available would call into the driver of a
+    # process (a gateway's worker) that never touched the card.
+    if not torch.cuda.is_initialized():
         return {}
     return {i: torch.cuda.memory_stats(i) for i in range(torch.cuda.device_count())}
 

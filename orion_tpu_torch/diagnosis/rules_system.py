@@ -6,10 +6,12 @@ Each rule reads only signals the stack already emits (docs/monitoring.md
 names every one); thresholds live as class attributes, the reference's
 own, so seeded pathology snapshots can construct unambiguous extremes.
 DX001 reads the compiler plane's ``cuda_graph.recaptures`` where the
-reference reads ``jax.retraces``.  DX005, DX007 and DX008 read the serve
-gateway's gauges (ROADMAP queue A item 8) and DX006 the ``use_mesh``
-placement fields (item 10): the port publishes neither yet, so those rules
-stay silent on its own snapshots.
+reference reads ``jax.retraces``.  DX005, DX007 and DX008 read what the
+serve gateway and its fleet publish (``serve.queue_depth`` and the
+``serve.backpressure`` counter; the ``serve.fleet.tenants.g<i>`` gauges;
+``serve.fleet.fenced_age_s``).  DX006 reads the ``use_mesh`` placement
+fields, which the port does not publish until the mesh (ROADMAP queue A
+item 10), so it stays silent on the port's own snapshots.
 """
 
 from orion_tpu_torch.diagnosis.engine import DoctorRule

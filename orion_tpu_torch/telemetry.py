@@ -37,8 +37,8 @@ itself as the ambient for its body, so nesting builds a real tree; span
 records carry ``trace_id``/``span_id``/``parent_span_id``.
 :func:`chrome_trace_events` turns cross-process parent/link edges into
 Perfetto flow events (``s``/``f`` phases).  The wire clients that inject
-the context into their requests (``netdb``, the serve client) are ROADMAP
-queue A items 7 and 8.
+the context into their requests are ``storage.netdb``'s and
+``serve.client``'s.
 
 Every access to the registry's shared state under its lock is annotated
 for the concurrency sanitizer (``TSAN.read``/``TSAN.write``, one attribute

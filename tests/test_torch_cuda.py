@@ -963,3 +963,102 @@ def test_tsan_round_with_the_prewarmer_racing_on_the_card(cuda, telemetry_off_af
     assert {"StepGraphs._entries", "StepGraphs._pool", "BucketPrewarmer._threads",
             "CompileRegistry._entries", "Telemetry._metrics"} <= cells
     assert report.locks["StepGraphs.lock"] >= 1
+
+
+@pytest.mark.cuda
+def test_width_3_coalesced_round_is_three_standalone_rounds(cuda, monkeypatch):
+    """Three tenants at the main path's configuration (q=1024, 130
+    observed): one coalesced dispatch (``orion_tpu_torch.serve``) gives
+    each tenant the rows and GPState leaves bit for bit equal to its round
+    run alone, and launches ``fused_gram`` three times (a tenant each),
+    every one at 16384 x 256 x 6.  The cache starts empty, so the first
+    tenant's round captures the signature and the launch plan is read."""
+    import copy
+
+    from torch.utils import _pytree as pytree
+
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+    from orion_tpu_torch.algo.tpu_bo import run_fused_plan
+    from orion_tpu_torch.serve.coalesce import run_coalesced_plans
+
+    shapes = []
+    plan = gram._launch_plan
+
+    def recording_plan(m, n, d, aligned):
+        shapes.append((m, n, d))
+        return plan(m, n, d, aligned)
+
+    monkeypatch.setattr(gram, "_launch_plan", recording_plan)
+    alone = [_main_path_algo(cuda, seed=seed) for seed in (20, 21, 22)]
+    twins = [copy.deepcopy(algo) for algo in alone]
+    STEP_GRAPHS.reset()
+    before = gram.fused_gram.launches
+    coalesced = run_coalesced_plans([algo.fused_step_plan(1024) for algo in twins])
+    torch.cuda.synchronize()
+    assert gram.fused_gram.launches - before == 3
+    assert set(shapes) == {(16384, 256, 6)}
+    assert len(STEP_GRAPHS.entries()) == 1
+    for algo, (rows, state) in zip(alone, coalesced):
+        want_rows, want_state = run_fused_plan(algo.fused_step_plan(1024))
+        assert torch.equal(rows, want_rows)
+        for got, want in zip(pytree.tree_leaves(state), pytree.tree_leaves(want_state)):
+            if torch.is_tensor(got):  # bit for bit: a NaN equals the same NaN
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            else:
+                assert got == want
+
+
+@pytest.mark.cuda
+def test_serve_hunt_worker_never_initializes_cuda(cuda, tmp_path):
+    """A ``hunt`` worker whose config has a ``serve:`` section, over a
+    gateway in this process on the card: its GP rounds run on the gateway,
+    and while it runs and after, the worker process holds no
+    ``/dev/nvidia*`` file and ``nvidia-smi`` lists no compute app beyond
+    those before it started."""
+    import os
+    import subprocess
+    import sys
+
+    import yaml
+
+    from orion_tpu_torch.serve.gateway import GatewayServer
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    torch.zeros(1, device=cuda)
+    torch.cuda.synchronize()
+    gateway = GatewayServer(window=0.01, device=cuda)
+    host, port = gateway.serve_background()
+    script, conf = tmp_path / "box.py", tmp_path / "serve.yaml"
+    script.write_text(_CLI_BOX)
+    conf.write_text(yaml.safe_dump({
+        "algorithms": {"tpu_bo": {"n_init": 8, "n_candidates": 512, "fit_steps": 4,
+                                  "seed": 0}},
+        "serve": {"address": f"{host}:{port}"}}))
+    apps_before = _cuda_apps()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "orion_tpu_torch.cli", "hunt", "-n", "served", "-c", str(conf),
+         "--storage-path", str(tmp_path / "db.sqlite"), "--pool-size", "8", "--max-trials",
+         "32", str(script), *[f"-x{i}~uniform(0, 1)" for i in range(6)]],
+        env=dict(os.environ, PYTHONPATH=root), cwd=str(tmp_path),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    seen, apps = set(), []
+    try:
+        while proc.poll() is None:
+            try:
+                seen.update(_nvidia_files(proc.pid))
+            except (FileNotFoundError, ProcessLookupError):
+                pass
+            apps.append(len(_cuda_apps()))
+            time.sleep(0.2)
+        err = proc.stderr.read()
+        stats = gateway.stats_snapshot()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        gateway.shutdown()
+        gateway.server_close()
+    assert proc.returncode == 0, err[-3000:]
+    assert seen == set()
+    assert max(apps, default=0) <= len(apps_before)
+    [tenant] = stats["per_tenant"].values()
+    assert tenant["n_observed"] >= 24 and stats["dispatches"] >= 4

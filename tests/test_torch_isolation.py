@@ -2,9 +2,9 @@
 neither JAX (``jax``, ``jaxlib``, ``optax``) nor any module of the JAX
 package ``orion_tpu`` — matched as the exact module or a dotted prefix, so
 ``orion_tpu_torch`` itself does not count.  The telemetry plane's, the
-network plane's, the day-2 operations', the device plane's and the
-doctor's and sanitizer's modules are also checked by name, and for
-importing without side effects."""
+network plane's, the day-2 operations', the device plane's, the
+doctor's and sanitizer's, and the suggest gateway's modules are also
+checked by name, and for importing without side effects."""
 
 import ast
 import os
@@ -276,6 +276,41 @@ def test_diagnosis_and_sanitizer_stand_alone():
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     env.pop("ORION_TPU_TSAN", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+SERVE_PLANE = ("serve", "serve.protocol", "serve.coalesce", "serve.fleet", "serve.gateway",
+               "serve.client", "cli.serve")
+
+
+def test_serve_plane_stands_alone():
+    """The suggest gateway's modules and the ``serve`` command are among
+    the checked files, and in a fresh interpreter importing them loads
+    neither JAX nor ``orion_tpu`` (not even its JAX-free
+    ``orion_tpu.serve.protocol``), starts no thread (the gateway's threads
+    start with a ``GatewayServer``), initializes no CUDA and captures
+    nothing."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in SERVE_PLANE:
+        base = os.path.join("orion_tpu_torch", *name.split("."))
+        assert base + ".py" in files or os.path.join(base, "__init__.py") in files, name
+    modules = [f"orion_tpu_torch.{name}" for name in SERVE_PLANE]
+    code = (
+        "import importlib, sys, threading\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import torch\n"
+        "from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert STEP_GRAPHS.entries() == []\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

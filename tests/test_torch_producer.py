@@ -223,10 +223,14 @@ def test_advance_rng_copies_state_and_keeps_objects_apart():
 
 
 def test_evc_family_and_remote_algorithm_raise_not_implemented():
-    """Only the remote algorithm still raises: an experiment with an EVC
-    family builds its producer over the tree fetch, a changed configuration
-    branches, and the audit runs (``tests/test_torch_evc.py`` and
-    ``tests/test_torch_audit.py`` hold them to the reference)."""
+    """Nothing here raises any more: an experiment with an EVC family
+    builds its producer over the tree fetch, a changed configuration
+    branches, the audit runs (``tests/test_torch_evc.py`` and
+    ``tests/test_torch_audit.py`` hold them to the reference), and a
+    ``serve`` section builds a ``RemoteAlgorithm`` attached to the gateway
+    it names (``tests/test_torch_serve.py`` holds it to the reference)."""
+    from orion_tpu_torch.serve import GatewayServer, RemoteAlgorithm
+
     storage = create_storage({"type": "memory"})
     exp = build_experiment(storage, "child", priors=PRIORS, refers={"parent_id": "p"})
     exp.instantiate(seed=0, device="cpu")
@@ -234,9 +238,19 @@ def test_evc_family_and_remote_algorithm_raise_not_implemented():
     assert exp.fetch_trials(with_evc_tree=True) == []
     child = build_experiment(storage, "child", priors={"x0": "uniform(0, 2)", "x1": "uniform(0, 1)"})
     assert child.version == 2 and child.refers["parent_id"] == exp.id
-    remote = build_experiment(storage, "remote", priors=PRIORS, serve={"address": "h:1"})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        remote.instantiate(device="cpu")
+    gateway = GatewayServer(device="cpu")
+    host, port = gateway.serve_background()
+    try:
+        remote = build_experiment(storage, "remote", priors=PRIORS,
+                                  serve={"address": f"{host}:{port}"})
+        remote.instantiate(seed=0, device="cpu")
+        assert isinstance(remote.algorithm, RemoteAlgorithm)
+        assert list(gateway.stats_snapshot()["per_tenant"]) == [
+            remote.algorithm._tenant]
+        assert remote.algorithm._tenant.startswith("remote-v1@")
+    finally:
+        gateway.shutdown()
+        gateway.server_close()
     assert exp.audit().ok
 
 
