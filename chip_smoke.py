@@ -43,7 +43,7 @@ non-zero; nothing is caught and passed over):
    one replayed are profiled as in 5.
 8. ``hunt``: the library entry point, ``optimize()``, through the producer
    and storage at the main path's full width -- Hartmann6, ``tpu_bo`` as in
-   4., q=1024, 5 rounds (one random, four GP) -- once on ``pickled`` storage
+   4., q=1024, 4 rounds (one random, three GP) -- once on ``pickled`` storage
    and once on ``memory``, each a JSON line with the per-round median ms of
    the producer's suggest, register and observe, of its sync with storage,
    reserve, ``batch_eval`` and completion, the round, suggestions/s and the
@@ -57,7 +57,7 @@ non-zero; nothing is caught and passed over):
    scenario through ``optimize()``, judged by the port's gate.
 9. ``cli``: ``orion-tpu-torch hunt`` over a pure-Python Hartmann6 user
    script (one subprocess a trial) with the main path's ``tpu_bo``.  First
-   one worker in this process on SQLite, ``--pool-size 1024``, 128 trials
+   one worker in this process on SQLite, ``--pool-size 1024``, 32 trials
    past a history of 1024 completed through the library (its first round a
    GP round), the kernel's launch shapes counted over the call (a launch at
    16384 x 256 x 6), with each trial's subprocess, reservation, completion
@@ -192,7 +192,12 @@ non-zero; nothing is caught and passed over):
    recapture, until DX001's bars hold (10 rounds, recaptures at least
    half of them): ``run_rules(local_snapshot())`` holds DX001 critical and
    ``doctor --json`` over the store exits 1 naming it; the recaptures'
-   ms and the shared pool's bytes after them.  (c) ``orion-tpu-torch tsan
+   ms, and each entry's pool bytes and growth after them, the shared pool
+   held to ``POOL_BOUND`` times its largest signature alone, and so is
+   every graph pool of the process after a ``gc`` and ``empty_cache``
+   (the captures come smallest first, the order that fragments a pool
+   most; a capture over the bound is measured alone, and its own pool
+   replaces the shared one when the shared one is still over).  (c) ``orion-tpu-torch tsan
    -- hunt --n-workers 2`` with telemetry, the watchdog and the prewarmer
    on, 32 trials past a history of 256: the merged report of every
    process (workers and user scripts) holds no race, no lock-order cycle
@@ -211,7 +216,9 @@ non-zero; nothing is caught and passed over):
    plan-prep cache's hit and miss cost, and the step graphs holding one
    signature, the standalone round's, with the pool no larger after the
    coalesced rounds than after the ones served alone; the process-wide
-   pool before the phase reset the cache is printed beside it.  (b)
+   pool before the phase reset the cache, and every graph pool of the
+   process then, each held to ``POOL_BOUND`` times the main signature's
+   pool alone, are printed beside it.  (b)
    ``orion-tpu-torch serve --persist`` as a subprocess on the card; two
    ``hunt`` workers of two experiments on one SQLite store with a
    ``serve:`` section, 16 trials each past a history of 256: trials/s, no
@@ -221,7 +228,24 @@ non-zero; nothing is caught and passed over):
    with DX005, DX007 and DX008 silent.  (c) A tenant's round through that
    gateway, SIGINT and a restart from its ``--persist`` file on the same
    port: the next q=1024 round bitwise equal to a gateway never stopped.
-17. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+17. ``lint``: the static analysis held against the card.  (a) ``run_lint``
+   over ``orion_tpu_torch`` and this script with the capture rules
+   (``JIT``) and ``PERF003``, in this process: zero findings, its rule
+   count and ms.  (b) Every planted case of
+   ``tests/fixtures/torch_lint/capture_cases.py`` (a host read, an index by
+   a 0-d tensor, a branch on a tensor value, a Python number in a tensor
+   slot, each beside a safe twin) linted and captured with
+   ``torch.cuda.graph``: a case the lint flags must fail to capture
+   (JIT001, JIT002) or replay a stale value (JIT003), a safe twin must
+   capture and replay equal to its eager run on new inputs; one line a
+   case with both verdicts.  (c) Under
+   ``torch.cuda.set_sync_debug_mode("warn")``, first a planted ``.item()``,
+   which must be recorded with its frame, then one eager
+   ``_suggest_step`` at the main path's width (after one unobserved
+   warm-up round): the Python frames of every sync, none inside a
+   function the capture rules treat as captured; the syncs and any other
+   warning counted.
+18. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -331,8 +355,11 @@ def _graph_ms(fn, calls=20, reps=15):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(stream)
+    # lint: disable=PERF003 -- the kernel checks' timing harness captures the
+    # kernel's calls to time them without launch overhead; no round runs it.
     graph = torch.cuda.CUDAGraph()
     keep = []
+    # lint: disable=PERF003 -- the same timing harness's capture.
     with torch.cuda.graph(graph):
         for _ in range(calls):
             keep.append(fn())
@@ -769,7 +796,7 @@ def phase_algorithms(device, runs=ALGO_RUNS):
 #: The ``hunt`` phase: the main path's algorithm through ``optimize()``.
 HUNT_ALGO = {"tpu_bo": {"n_init": 16, "n_candidates": 16384, "fit_steps": 40,
                         "local_frac": 0.3}}
-HUNT_ROUNDS = 5
+HUNT_ROUNDS = 4
 HUNT_PRIORS = {f"x{i}": "uniform(0, 1)" for i in range(6)}
 MAIN_SHAPE = (16384, 256, 6)
 WORKERS = 2
@@ -1080,7 +1107,7 @@ def phase_hunt(device, plain_round_ms):
 CLI_PRIORS = [f"-x{i}~uniform(0, 1)" for i in range(6)]
 CLI_ALGO = {"n_init": 16, "n_candidates": 16384, "fit_steps": 40, "local_frac": 0.3, "seed": 0}
 CLI_Q = 1024
-CLI_TRIALS = 128  # past a seeded history of CLI_HISTORY: one GP round, 128 of it consumed
+CLI_TRIALS = 32  # past a seeded history of CLI_HISTORY: one GP round, 32 of it consumed
 #: The one-worker hunt's history, completed through the library: as many as
 #: its trials were before the depth cut, so that the ``evc`` children's first
 #: rounds still fit 256 rows of family history (``MAIN_SHAPE``).
@@ -3268,12 +3295,6 @@ def phase_day2(device, tmp, plane, q=CLI_Q, timeout=600):
             "restore": restore["resumed"]["fused_gram_launches"]}
 
 
-#: The ``device_plane`` phase's bound: the shared graph pool after every
-#: signature this process captured, against the largest single signature's
-#: pool measured alone in a fresh pool.
-POOL_BOUND = 1.5
-
-
 def _plan_equal(got, want):
     """Rows, health and GP hypers of two ``(rows, state)`` results, bitwise."""
     rows, state = got
@@ -3364,12 +3385,15 @@ def run_pool_bound(device):
     import gc
 
     from orion_tpu_torch.algo import tpu_bo as tbo
-    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS, StepGraphs
+    from orion_tpu_torch.algo.step_graphs import (
+        POOL_BOUND, STEP_GRAPHS, StepGraphs, graph_pool_bytes)
     from torch.utils import _pytree as pytree
 
     entries = [(sig, entry) for dev, sig, entry in STEP_GRAPHS.entries()
                if entry.graph is not None]
-    shared = STEP_GRAPHS.pool_bytes()
+    gc.collect()
+    torch.cuda.empty_cache()  # the dead graphs' pools: only live ones stay
+    shared, process = STEP_GRAPHS.pool_bytes(), graph_pool_bytes()
     heavy = sorted(entries, key=lambda se: -int(se[1].statics["q"])
                    * int(se[1].statics["n_candidates"]))[:3]
     alone = []
@@ -3380,16 +3404,19 @@ def run_pool_bound(device):
         graphs.run(tbo._suggest_step, sig, arrays, entry.statics)
         alone.append({"fit_bucket": sig[0][0], "width": sig[0][1], "q": entry.statics["q"],
                       "pool_bytes": graphs.pool_bytes()})
+        graphs.reset()
         del graphs, arrays
-        gc.collect()
-        torch.cuda.empty_cache()
     largest = max(a["pool_bytes"] for a in alone)
     out = {"signatures": len(entries), "shared_pool_bytes": shared,
-           "largest_alone_bytes": largest, "alone": alone,
-           "ratio": shared / largest, "bound": POOL_BOUND}
-    if shared > POOL_BOUND * largest:
-        raise AssertionError(f"the shared graph pool holds {shared} bytes, over "
-                             f"{POOL_BOUND} x the largest signature's {largest}")
+           "process_graph_pool_bytes": process, "largest_alone_bytes": largest,
+           "alone": alone, "ratio": shared / largest, "process_ratio": process / largest,
+           "bound": POOL_BOUND, "fresh_pools": STEP_GRAPHS.fresh_pools,
+           "alone_captures": STEP_GRAPHS.alone_captures,
+           "stranded_bytes": STEP_GRAPHS.stranded_bytes}
+    if max(shared, process) > POOL_BOUND * largest:
+        raise AssertionError(f"the graph pools hold {shared} bytes (the step graphs') and "
+                             f"{process} (the process's), over {POOL_BOUND} x the largest "
+                             f"signature's {largest}")
     return out
 
 
@@ -3656,7 +3683,13 @@ def run_diagnosis_fork(run_dir, device, qs=FORK_QS, max_rounds=FORK_MAX_ROUNDS):
     round at the next q bucket of ``qs`` (a signature no earlier round
     had), until the round count and the recaptures pass DX001's bars:
     ``run_rules(local_snapshot())`` must then hold DX001 as critical, and
-    ``doctor --json`` over the store exit 1 naming it."""
+    ``doctor --json`` over the store exit 1 naming it.  The captures come
+    in ascending q, the order that fragments a shared pool most: the pool
+    after them is held to ``POOL_BOUND`` times the largest signature it
+    holds, captured alone (:func:`run_pool_bound`, which raises), and each
+    entry's pool bytes, growth and footprint measured alone are reported
+    with the step graphs' alone captures, fresh pools and stranded
+    bytes."""
     from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
     from orion_tpu_torch.benchmarks.functions import hartmann6
     from orion_tpu_torch.client.experiment import ExperimentClient
@@ -3665,6 +3698,7 @@ def run_diagnosis_fork(run_dir, device, qs=FORK_QS, max_rounds=FORK_MAX_ROUNDS):
     from orion_tpu_torch.diagnosis import local_snapshot, run_rules
     from orion_tpu_torch.diagnosis.rules_system import RecaptureStorm
     from orion_tpu_torch.health import FLIGHT
+    from orion_tpu_torch.ops import gram
     from orion_tpu_torch.storage.base import create_storage
     from orion_tpu_torch.telemetry import TELEMETRY
 
@@ -3699,7 +3733,12 @@ def run_diagnosis_fork(run_dir, device, qs=FORK_QS, max_rounds=FORK_MAX_ROUNDS):
         snapshot = local_snapshot()
         report = run_rules(snapshot)
         entries = [e for e in COMPILE_REGISTRY.entries() if e.kind == "recapture"]
-        pool_bytes = STEP_GRAPHS.pool_bytes()
+        captures = [{"fit_bucket": sig[0][0], "q": e.statics["q"], "pool_bytes": e.pool_bytes,
+                     "grew_bytes": e.grew_bytes, "alone_bytes": e.alone_bytes}
+                    for _dev, sig, e in STEP_GRAPHS.entries() if e.graph is not None]
+        launches = gram.fused_gram.launches
+        pool = run_pool_bound(device)
+        gram.fused_gram.launches = launches  # the signatures alone: a measurement's launches
         health = storage.fetch_health(exp)
     finally:
         TELEMETRY.reset()
@@ -3713,7 +3752,8 @@ def run_diagnosis_fork(run_dir, device, qs=FORK_QS, max_rounds=FORK_MAX_ROUNDS):
               "recapture_ms": [round(e.seconds * 1e3, 3) for e in entries],
               "recapture_signatures": [f"fit_bucket={e.fields['fit_bucket']} q={e.fields['q']}"
                                        for e in entries],
-              "pool_bytes": pool_bytes, "local_findings": local,
+              "pool_bytes": pool["shared_pool_bytes"], "pool": pool,
+              "pool_entries": captures, "local_findings": local,
               "doctor_exit": rc, "doctor_ms": doctor_ms,
               "stored_findings": [(f["rule"], f["severity"], f.get("value"))
                                   for f in stored["findings"]]}
@@ -4193,17 +4233,21 @@ def phase_serve(device, tmp):
     The step graphs' cache starts empty (``STEP_GRAPHS.reset()``, as
     ``diagnosis`` (b) resets it), so (a)'s pool check covers the phase's
     own signatures.  The process-wide pool before the reset (in the whole
-    script, ``diagnosis`` (b)'s fork of ten signatures above all) is
-    printed with (a)'s line, against the main signature's pool alone (the
-    phase's first capture, into the emptied pool): not held to
-    ``POOL_BOUND``, which that fork's pool exceeds (``PERF.md`` §7)."""
-    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+    script, what ``diagnosis`` (b)'s fork of ten signatures left) is held
+    to ``POOL_BOUND`` times the main signature's pool alone (the phase's
+    first capture, into the emptied pool), and printed with (a)'s line."""
+    import gc
+
+    from orion_tpu_torch.algo.step_graphs import POOL_BOUND, STEP_GRAPHS, graph_pool_bytes
     from orion_tpu_torch.ops import gram
 
     run_dir = os.path.join(tmp, "serve")
     os.makedirs(run_dir)
+    gc.collect()
+    torch.cuda.empty_cache()  # the dead graphs' pools: only live ones stay
     process_pool = {"signatures": len(STEP_GRAPHS.entries()),
-                    "pool_bytes": STEP_GRAPHS.pool_bytes()}
+                    "pool_bytes": STEP_GRAPHS.pool_bytes(),
+                    "process_graph_pool_bytes": graph_pool_bytes()}
     STEP_GRAPHS.reset()
     launches = {}
     gateway = _ServeProcess(run_dir, _free_port(), os.path.join(run_dir, "gateway.pkl"))
@@ -4212,9 +4256,15 @@ def phase_serve(device, tmp):
         coalesced = run_serve_coalesced(device)
         launches["coalesced"] = coalesced["fused_gram_launches"]
         launches["alone"] = coalesced["alone_fused_gram_launches"]
-        process_pool["over_main_signature_alone"] = (
-            process_pool["pool_bytes"] / coalesced["signatures"][0]["pool_bytes"])
+        main_alone = coalesced["signatures"][0]["pool_bytes"]
+        process_pool["over_main_signature_alone"] = process_pool["pool_bytes"] / main_alone
+        process_pool["process_over_main_signature_alone"] = (
+            process_pool["process_graph_pool_bytes"] / main_alone)
         emit("serve", leg="coalesced", process_pool_before_reset=process_pool, **coalesced)
+        if max(process_pool["over_main_signature_alone"],
+               process_pool["process_over_main_signature_alone"]) > POOL_BOUND:
+            raise AssertionError(f"serve: the process-wide pool before the reset, "
+                                 f"{process_pool}, is over {POOL_BOUND} x the main signature's")
         gateway.ready()
         workers = run_serve_workers(run_dir, device, gateway)
         emit("serve", leg="workers", **workers)
@@ -4224,6 +4274,171 @@ def phase_serve(device, tmp):
         emit("serve", leg="persist", **persist)
     finally:
         gateway.kill()
+    return launches
+
+
+#: The ``lint`` phase's planted capture cases.
+CAPTURE_CASES = os.path.join("tests", "fixtures", "torch_lint", "capture_cases.py")
+
+
+def _load_by_path(path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(path))[0], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _span(fn):
+    import inspect
+
+    lines, first = inspect.getsourcelines(fn)
+    return range(first, first + len(lines))
+
+
+def run_lint_static():
+    """(a) The capture rules and PERF003 over the port and this script."""
+    from orion_tpu_torch.analysis import default_rules, run_lint
+
+    select = ["JIT", "PERF003"]
+    t0 = time.perf_counter()
+    diagnostics = run_lint([os.path.join(ROOT, "orion_tpu_torch"), os.path.abspath(__file__)],
+                           select=select)
+    ms = (time.perf_counter() - t0) * 1e3
+    rules = [r.id for r in default_rules() if any(r.id.startswith(p) for p in select)]
+    out = {"rules": rules, "findings": [d.format() for d in diagnostics], "ms": ms}
+    if diagnostics:
+        raise AssertionError(f"lint (a): {out}")
+    return out
+
+
+def _lint_agrees(line):
+    """Whether a planted case's lint verdict and card verdict agree: the
+    flagged side is flagged and the safe one not; a flagged JIT003 case
+    captures and replays stale, any other flagged case fails to capture; a
+    safe twin captures and replays fresh."""
+    if line["flagged"] != (line["side"] == "flagged"):
+        return False
+    if not line["flagged"]:
+        return line["captured"] and line["fresh"]
+    if line["rule"] == "JIT003":
+        return line["captured"] and not line["fresh"]
+    return not line["captured"]
+
+
+def run_lint_cases(device):
+    """(b) Each planted case linted, then captured on the card: the two
+    verdicts must agree (a flagged case fails to capture or replays a
+    stale value; a safe twin captures and replays fresh)."""
+    from orion_tpu_torch.analysis import run_lint
+
+    path = os.path.join(ROOT, CAPTURE_CASES)
+    cases = _load_by_path(path)
+    t0 = time.perf_counter()
+    diagnostics = run_lint([path], select=["JIT"])
+    lint_ms = (time.perf_counter() - t0) * 1e3
+    lines = []
+    for rule, name, flagged_site, flagged_body, safe_site, safe_body in cases.CASES:
+        for side, site, body in (("flagged", flagged_site, flagged_body),
+                                 ("safe", safe_site, safe_body)):
+            spans = (_span(site), _span(body))
+            linted = any(d.rule_id == rule and any(d.line in span for span in spans)
+                         for d in diagnostics)
+            captured, fresh = cases.card_verdict(site, body, device)
+            lines.append({"rule": rule, "case": name, "side": side, "flagged": linted,
+                          "captured": captured, "fresh": fresh})
+    for line in lines:
+        emit("lint", part="case", **line)
+    bad = [line for line in lines if not _lint_agrees(line)]
+    if bad:
+        raise AssertionError(f"lint (b): lint and card disagree: {bad}")
+    return {"cases": len(lines), "lint_ms": lint_ms}
+
+
+def _planted_sync(device):
+    """A host read the sync debug mode must report: (c)'s witness."""
+    return torch.ones(1, device=device).sum().item()
+
+
+def run_lint_syncs(device):
+    """(c) Under ``set_sync_debug_mode("warn")``: first a planted
+    ``.item()`` (:func:`_planted_sync`), which must be recorded with its
+    frame, then one eager ``_suggest_step`` at the main path's width,
+    after one unobserved warm-up round: every sync's Python frames; none
+    may lie inside a function the capture rules treat as captured.
+    Returns the counts and ``fused_gram``'s launches over the observed
+    round."""
+    import traceback
+    import warnings
+
+    from orion_tpu_torch.algo import tpu_bo as tbo
+    from orion_tpu_torch.analysis.jit_rules import captured_spans
+    from orion_tpu_torch.ops.gram import fused_gram
+
+    rng = np.random.default_rng(0)
+    algo = _make_algo(0, device)
+    x = rng.uniform(size=(N_HISTORY, 6)).astype(np.float32)
+    _observe(algo, x, _hartmann6(x))
+    plan = algo.fused_step_plan(Q)
+    tbo._suggest_step(*plan.arrays, **plan.statics)  # warm-up: lazy handles, the kernel's load
+    _sync(device)
+    spans = captured_spans([os.path.join(ROOT, "orion_tpu_torch")])
+    syncs, others = [], []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        text = str(message).splitlines()[0]
+        if "called a synchronizing" not in text:  # not the mode's notice: counted apart
+            others.append(f"{category.__name__}: {text[:160]}")
+            return
+        syncs.append({"message": text[:160],
+                      "frames": [(os.path.realpath(f.filename), f.lineno, f.name)
+                                 for f in traceback.extract_stack()[:-1]]})
+
+    def observed(fn):
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    observed(lambda: _planted_sync(device))
+    here = os.path.realpath(__file__)
+    planted = [s for s in syncs if any(frame[0] == here and frame[2] == "_planted_sync"
+                                       for frame in s["frames"])]
+    if not planted:
+        raise AssertionError(f"lint (c): the planted .item() was not recorded: {syncs} {others}")
+    syncs.clear()
+    fused_gram.launches = 0
+    t0 = time.perf_counter()
+    rows, _state = observed(lambda: tbo._suggest_step(*plan.arrays, **plan.statics))
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = fused_gram.launches
+    inside = [(s["message"], frame) for s in syncs for frame in s["frames"]
+              if any(frame[0] == path and first <= frame[1] <= last
+                     for path, _name, first, last in spans)]
+    out = {"planted_syncs": len(planted), "planted_message": planted[0]["message"],
+           "syncs": len(syncs), "in_captured": len(inside), "other_warnings": others,
+           "captured_functions": len(spans), "round_ms": ms, "rows": list(rows.shape),
+           "fused_gram_launches": launches,
+           "sync_messages": sorted({s["message"] for s in syncs})}
+    if inside or tuple(rows.shape) != (Q, 6) or not torch.isfinite(rows).all() or not launches:
+        raise AssertionError(f"lint (c): {out} {inside[:5]}")
+    return out, launches
+
+
+def phase_lint(device):
+    """The static analysis against the card: (a), (b), (c) above.  Returns
+    ``fused_gram``'s launches in (c)'s observed round."""
+    emit("lint", part="static", **run_lint_static())
+    emit("lint", part="cases", **run_lint_cases(device))
+    syncs, launches = run_lint_syncs(device)
+    emit("lint", part="syncs", **syncs)
     return launches
 
 
@@ -4262,6 +4477,7 @@ def main():
         device_plane_launches = run("device_plane", phase_device_plane, device, tmp)
         diagnosis_launches = run("diagnosis", phase_diagnosis, device, tmp)
         serve_launches = run("serve", phase_serve, device, tmp)
+    lint_launches = run("lint", phase_lint, device)
     emit("seconds", **seconds, phases=sum(seconds.values()))
 
     def case(shape):
@@ -4278,7 +4494,8 @@ def main():
                      + sum(cli_launches.values()) + evc_launches
                      + sum(telemetry_launches.values()) + sum(network_launches.values())
                      + sum(day2_launches.values()) + device_plane_launches
-                     + sum(diagnosis_launches.values()) + sum(serve_launches.values())),
+                     + sum(diagnosis_launches.values()) + sum(serve_launches.values())
+                     + lint_launches),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
                              "hunt": hunt_launches, "cli": sum(cli_launches.values()),
                              "cli_runs": cli_launches, "evc": evc_launches,
@@ -4291,7 +4508,7 @@ def main():
                              "diagnosis": sum(diagnosis_launches.values()),
                              "diagnosis_runs": diagnosis_launches,
                              "serve": sum(serve_launches.values()),
-                             "serve_runs": serve_launches},
+                             "serve_runs": serve_launches, "lint": lint_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

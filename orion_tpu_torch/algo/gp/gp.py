@@ -65,8 +65,8 @@ def init_hypers(n_dims, device=None):
     return GPHypers(
         log_lengthscales=torch.full((n_dims,), _f32log(0.3), dtype=torch.float32,
                                     device=device),
-        log_amplitude=torch.tensor(0.0, dtype=torch.float32, device=device),
-        log_noise=torch.tensor(_f32log(1e-3), dtype=torch.float32, device=device),
+        log_amplitude=torch.full((), 0.0, dtype=torch.float32, device=device),
+        log_noise=torch.full((), _f32log(1e-3), dtype=torch.float32, device=device),
     )
 
 

@@ -23,7 +23,34 @@ copies the rows and every leaf of the GPState out of the static outputs.
 ``torch.cuda.graph_pool_handle()``, so the pool holds about the largest
 round's working set, not the sum over signatures.  (After a capture fails,
 the allocator refuses to record into that pool again, so the captures after
-it take a new one; ``pool_bytes`` counts every pool the cache used.)  That is safe only while
+it take a new one.)  ``pool_bytes`` counts the allocator's segments of the
+current pool and of every pool the cache gave up whose segments are still
+reserved; :func:`graph_pool_bytes` counts every graph pool of the process,
+whoever made it.
+
+The pool's segments are sized by the captures that made them: the largest
+block a round asks for grows with q (32 MiB at q=8, 512 MiB at q=1024 at
+the main path's 16384 candidates), and a later, larger capture cannot
+assemble its block from the free segments of smaller ones.  Captures in
+ascending size therefore leave the pool near the sum of a doubling series
+(q = 8 ... 1024 at the main path's width: about 1.55x the q=1024 signature
+alone, ``tests/test_torch_cuda.py``'s ascending-q test), where a pool the
+largest signature starts holds the others within its own segments.  So the
+pool is held to ``POOL_BOUND`` times the largest signature's footprint, the
+pool that signature needs alone.  A footprint is exact where it was
+measured (a pool's first capture, or a capture alone) and otherwise its
+capture's growth of the pool, a lower bound.  A capture that leaves the
+pool over the bound on those figures is captured again, alone, into a pool
+of its own, which measures its footprint exactly.  If the shared pool is
+still over the bound, the signature's own pool replaces it: every entry is
+dropped, their graphs and static outputs are freed (whoever still holds the
+entry), and the old pool is released; a dropped signature is captured again
+at its next round, into segments the larger one already made.  Otherwise
+the alone capture is freed and its pool released.  A release is checked
+against the allocator: a pool whose segments it still holds stays counted
+in ``pool_bytes`` (``stranded_bytes``).
+
+That is safe only while
 two graphs of the pool never run at once and each replay's outputs are read
 before the next replay reuses their memory: one lock covers every capture
 (a prewarm's included) and every replay with its copy-out, and all of them
@@ -69,8 +96,71 @@ class StepEntry(NamedTuple):
     capture_ms: float
     instantiate_ms: object  # None where capture_end instantiated
     graph_nodes: object  # None where the torch build keeps no graph
-    pool_bytes: int  # the shared pool's bytes after this capture
+    pool_bytes: int  # the bytes of the pool it was recorded into, after this capture
     static_bytes: int  # the static input buffers' bytes (outside the pool)
+    grew_bytes: int  # what this capture added to that pool
+    alone_bytes: object  # the pool its signature needs alone (exact); None: not measured
+
+
+#: The step graphs' pool is held to this many times the largest
+#: signature's footprint (``PERF.md``'s bound).
+POOL_BOUND = 1.5
+
+
+def _footprint(entry):
+    """A lower bound of the pool ``entry``'s signature needs alone: exact
+    where it was measured, else what its capture added to the pool."""
+    return entry.grew_bytes if entry.alone_bytes is None else entry.alone_bytes
+
+
+def _over_bound(pool_bytes, footprints):
+    """Whether a pool of ``pool_bytes`` is over ``POOL_BOUND`` times the
+    largest of ``footprints``."""
+    return pool_bytes > POOL_BOUND * max(footprints, default=0)
+
+
+def _segments(pools):
+    """The allocator snapshot's segments of ``pools`` (pool ids as tuples),
+    or of every graph pool where ``pools`` is None."""
+    if not torch.cuda.is_initialized():
+        return []
+    return [
+        # lint: disable=PERF003 -- walked at a capture (a signature's first
+        # round, before and after it), a release and by measurements, never
+        # on a replay; the metrics sampler reads last_pool_bytes instead.
+        seg for seg in torch.cuda.memory_snapshot()
+        if (tuple(seg.get("segment_pool_id") or (0, 0)) != (0, 0) if pools is None
+            else tuple(seg.get("segment_pool_id") or ()) in pools)
+    ]
+
+
+def graph_pool_bytes():
+    """The reserved bytes of every CUDA-graph pool of the process, whoever
+    made it (the allocator's segments of a private pool): the independent
+    reading the step graphs' own ``pool_bytes`` is held against."""
+    return sum(int(seg["total_size"]) for seg in _segments(None))
+
+
+def _release(entries, pools):
+    """Free ``entries``' graphs and their static outputs in ``pools``,
+    whoever still holds the entries, and hand the pools' free segments back
+    to the device.  Returns ``{pool: bytes the allocator still holds}``."""
+    torch.cuda.synchronize()  # no replay of these graphs still running
+    ranges = [(seg["address"], seg["address"] + seg["total_size"]) for seg in _segments(pools)]
+    for entry in entries:
+        if entry.graph is None:
+            continue
+        entry.graph.reset()
+        for leaf in pytree.tree_leaves(entry.static_out):
+            if torch.is_tensor(leaf):
+                storage = leaf.untyped_storage()
+                if any(lo <= storage.data_ptr() < hi for lo, hi in ranges):
+                    storage.resize_(0)
+    torch.cuda.empty_cache()
+    held = dict.fromkeys(pools, 0)
+    for seg in _segments(pools):
+        held[tuple(seg["segment_pool_id"])] += int(seg["total_size"])
+    return held
 
 
 def _tensor_bytes(leaves):
@@ -108,8 +198,12 @@ class StepGraphs:
     def __init__(self):
         self.lock = threading.Lock()
         self._entries = {}
-        self._pools = []
+        self._pool = None  # the pool the next capture records into
+        self._given_up = set()  # pools given up whose segments were still held
         self._streams = {}
+        self.fresh_pools = 0  # shared pools replaced by a signature's own
+        self.alone_captures = 0  # signatures captured alone to measure their footprint
+        self.stranded_bytes = 0  # what the newest release left reserved
 
     # --- bookkeeping -------------------------------------------------------
     def has(self, device, signature):
@@ -135,19 +229,20 @@ class StepGraphs:
         """The pool the next capture records into (None before the first)."""
         with self.lock:
             TSAN.read("StepGraphs._pool", self)
-            return self._pools[-1] if self._pools else None
+            return self._pool
+
+    def _pools(self):
+        pools = set(self._given_up)
+        if self._pool is not None:
+            pools.add(tuple(self._pool))
+        return pools
 
     def pool_bytes(self):
-        """The reserved bytes of the cache's pools, summed over the
-        allocator snapshot's segments of those pools (0 before the first
+        """The reserved bytes of the current pool and of every pool the
+        cache gave up that the allocator still holds (0 before the first
         capture)."""
-        pools = {tuple(pool) for pool in self._pools}
-        if not pools:
-            return 0
-        return sum(
-            int(seg["total_size"]) for seg in torch.cuda.memory_snapshot()
-            if tuple(seg.get("segment_pool_id") or ()) in pools
-        )
+        pools = self._pools()
+        return sum(int(seg["total_size"]) for seg in _segments(pools)) if pools else 0
 
     def last_pool_bytes(self):
         """The pool's bytes as the newest capture left them (no allocator
@@ -158,12 +253,18 @@ class StepGraphs:
         return max(sizes) if sizes else 0
 
     def reset(self):
-        """Drop every entry and the pool (tests; a fresh measurement)."""
+        """Drop every entry and release every pool (tests; a fresh
+        measurement)."""
         with self.lock:
             TSAN.write("StepGraphs._entries", self)
             TSAN.write("StepGraphs._pool", self)
+            entries, pools = list(self._entries.values()), self._pools()
             self._entries = {}
-            self._pools = []
+            self._pool = None
+            self._given_up = set()
+            self.fresh_pools = self.alone_captures = self.stranded_bytes = 0
+            if pools:
+                _release(entries, pools)
 
     def _stream(self, device):
         stream = self._streams.get(device)
@@ -216,13 +317,10 @@ class StepGraphs:
             self._entries[key] = entry
             return entry
 
+    # The methods below run only inside run and prewarm, under self.lock.
     def _capture(self, fn, arrays, statics, device):
-        """Warm-up round, capture and instantiation on the step stream; the
-        lock is held.  Returns ``(warm-up output, entry)``."""
-        TSAN.write("StepGraphs._pool", self)
-        if not self._pools:
-            self._pools.append(torch.cuda.graph_pool_handle())
-        pool = self._pools[-1]
+        """Warm-up round, capture and instantiation on the step stream, and
+        the pool bound.  Returns ``(warm-up output, entry)``."""
         stream = self._stream(device)
         current = torch.cuda.current_stream(device)
         stream.wait_stream(current)
@@ -231,6 +329,24 @@ class StepGraphs:
             out = fn(*arrays, **statics)
             # Outside the pool: allocated before the capture begins.
             static_in = [t.clone() if torch.is_tensor(t) else t for t in leaves]
+        TSAN.write("StepGraphs._pool", self)
+        if self._pool is None:
+            # lint: disable=LCK002 -- runs only inside run/prewarm's lock
+            self._pool = torch.cuda.graph_pool_handle()
+        entry = self._record(fn, static_in, in_spec, statics, device, self._pool)
+        others = [_footprint(e) for e in self._entries.values()]
+        if _over_bound(entry.pool_bytes, others + [_footprint(entry)]):
+            entry = self._bound(fn, static_in, in_spec, statics, device, entry, others)
+        current.wait_stream(stream)
+        _record_stream(out, current)
+        return out, entry
+
+    def _record(self, fn, static_in, in_spec, statics, device, pool):
+        """Capture ``fn`` over the static inputs into ``pool`` and
+        instantiate it, on the step stream (the warm-up already ran)."""
+        before = sum(int(seg["total_size"]) for seg in _segments({tuple(pool)}))
+        stream = self._stream(device)
+        with torch.cuda.stream(stream):
             graph, kept = _new_graph()
             t0 = time.perf_counter()
             try:
@@ -240,10 +356,13 @@ class StepGraphs:
                     static_out = fn(*pytree.tree_unflatten(static_in, in_spec), **statics)
             except BaseException:
                 # capture_end raised before it ended the allocator's routing
-                # into the pool: end it, and record later captures into a new
-                # pool (the allocator refuses this one from now on).
+                # into the pool: end it, and give the pool up (the allocator
+                # refuses it from now on; its segments stay counted).
                 _end_allocating_to(device, pool)
-                self._pools.append(torch.cuda.graph_pool_handle())
+                self._given_up.add(tuple(pool))
+                if pool is self._pool:
+                    # lint: disable=LCK002 -- runs only inside run/prewarm's lock
+                    self._pool = None
                 raise
             capture_ms = (time.perf_counter() - t0) * 1e3
             nodes = instantiate_ms = None
@@ -252,13 +371,48 @@ class StepGraphs:
                 t0 = time.perf_counter()
                 graph.instantiate()
                 instantiate_ms = (time.perf_counter() - t0) * 1e3
-        current.wait_stream(stream)
-        _record_stream(out, current)
-        entry = StepEntry(
+        after = sum(int(seg["total_size"]) for seg in _segments({tuple(pool)}))
+        return StepEntry(
             graph, static_in, in_spec, dict(statics), static_out, tuple(launches), capture_ms,
-            instantiate_ms, nodes, self.pool_bytes(), _tensor_bytes(static_in),
+            instantiate_ms, nodes, after, _tensor_bytes(static_in), after - before,
+            after if before == 0 else None,
         )
-        return out, entry
+
+    def _bound(self, fn, static_in, in_spec, statics, device, shared, others):
+        """``shared`` left the pool over the bound on the footprints known:
+        capture its signature again, alone, into a pool of its own, which
+        measures its footprint.  If the shared pool is over the bound on
+        that figure too, the alone pool replaces it (every entry dropped,
+        the shared pool released); else the alone capture is released."""
+        pool = torch.cuda.graph_pool_handle()
+        alone = self._record(fn, static_in, in_spec, statics, device, pool)
+        # lint: disable=LCK002 -- runs only inside run/prewarm's lock
+        self.alone_captures += 1
+        shared = shared._replace(alone_bytes=alone.alone_bytes)
+        if not _over_bound(shared.pool_bytes, others + [alone.alone_bytes]):
+            self._give_up([alone], {tuple(pool)})
+            return shared
+        TSAN.write("StepGraphs._entries", self)
+        dropped, old = list(self._entries.values()) + [shared], self._pools()
+        self._entries.clear()
+        # lint: disable=LCK002 -- runs only inside run/prewarm's lock
+        self._pool = pool
+        # lint: disable=LCK002 -- runs only inside run/prewarm's lock
+        self.fresh_pools += 1
+        self._give_up(dropped, old)
+        return alone
+
+    def _give_up(self, entries, pools):
+        """Release ``pools`` with ``entries``; a pool whose segments the
+        allocator still holds stays counted."""
+        held = _release(entries, pools)
+        for pool, nbytes in held.items():
+            if nbytes:
+                self._given_up.add(pool)
+            else:
+                self._given_up.discard(pool)
+        # lint: disable=LCK002 -- runs only inside run/prewarm's lock
+        self.stranded_bytes = sum(held.values())
 
     def _replay(self, entry, arrays, device):
         """Inputs in, replay, rows and state out — all on the step stream,
@@ -305,7 +459,7 @@ def _record_stream(tree, stream):
 
 
 #: A CPU entry: the signature was seen, nothing was captured.
-_CPU_MARKER = StepEntry(None, [], None, {}, None, (), 0.0, None, None, 0, 0)
+_CPU_MARKER = StepEntry(None, [], None, {}, None, (), 0.0, None, None, 0, 0, 0, None)
 
 #: THE process-wide cache: one pool, one lock.
 STEP_GRAPHS = StepGraphs()

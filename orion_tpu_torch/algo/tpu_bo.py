@@ -596,6 +596,9 @@ def flop_analysis_fn(arrays, statics):
 
         dummies = [torch.zeros(s[0], dtype=s[1], device=s[2]) if isinstance(s, tuple) else s
                    for s in specs]
+        # lint: disable=PERF003 -- this closure runs only inside
+        # CompileRegistry.analyze_all (the profile command, tests), never on
+        # a round: the compiler plane's cold path, handed its shapes here.
         counter = FlopCounterMode(display=False)
         with counter:
             _suggest_step(*pytree.tree_unflatten(dummies, spec), **statics)

@@ -1,11 +1,13 @@
 """Rule-engine core for the port's static analysis (port of
 ``orion_tpu/analysis/engine.py``).
 
-The port's concurrency rests on conventions nothing in Python enforces:
-the cross-thread objects (the telemetry ring, the flight recorder, the
-step-graph cache and its prewarmer, the network driver, the shard router)
-must keep one lock discipline.  This engine machine-checks them, so a new
-lock nesting that closes a cycle fails a test instead of a review.
+The port's fast paths rest on conventions nothing in Python enforces: the
+GP round must stay capturable as a CUDA graph, every storage protocol op
+must ride the unified retry policy with a declared applied-or-not mode,
+telemetry must be allocation-free when disabled, the producer's round must
+stay vectorized, and the cross-thread objects must keep one lock
+discipline.  This engine machine-checks them, so a change that breaks one
+fails a test instead of a review.
 
 Design:
 
@@ -21,12 +23,13 @@ Design:
   suppression comment applies to the next line as well, so multi-line
   statements can be annotated above.
 
-:func:`default_rules` registers the ``LCK*`` family (lock order and shared
-state, ``lock_rules``) next to the engine's own ``LNT*`` checks.  The
-reference's other families — ``JIT*`` (rewritten for the port as rules for
-torch hazards), ``PERF*``, ``STO*``, ``TEL*`` — with the ``lint`` and
-``docgen`` commands and the self-lint test over the port are ROADMAP queue A
-item 9b.
+Rule identifiers are grouped by family: ``JIT*`` (CUDA-graph capture
+hazards, ``jit_rules``), ``STO*`` (storage retry coverage,
+``storage_rules``), ``TEL*`` (telemetry discipline, ``telemetry_rules``),
+``LCK*`` (lock order and shared state, ``lock_rules``), ``PERF*`` (hot-path
+vectorization and cold-path introspection, ``perf_rules``), and ``LNT*``
+(the engine's own checks).  ``orion-tpu-torch lint --list-rules`` prints
+the catalog.
 """
 
 import ast
@@ -340,11 +343,19 @@ def load_module(path):
 
 
 def default_rules():
-    """Fresh instances of every registered rule family: the ``LCK*`` lock
-    rules (the other families are ROADMAP queue A item 9b)."""
+    """Fresh instances of every registered rule family."""
+    from orion_tpu_torch.analysis.jit_rules import JIT_RULES
     from orion_tpu_torch.analysis.lock_rules import LOCK_RULES
+    from orion_tpu_torch.analysis.perf_rules import PERF_RULES
+    from orion_tpu_torch.analysis.storage_rules import STORAGE_RULES
+    from orion_tpu_torch.analysis.telemetry_rules import TELEMETRY_RULES
 
-    return [cls() for cls in LOCK_RULES]
+    rules = []
+    for family in (
+        JIT_RULES, STORAGE_RULES, TELEMETRY_RULES, LOCK_RULES, PERF_RULES
+    ):
+        rules.extend(cls() for cls in family)
+    return rules
 
 
 def rule_catalog():
@@ -418,8 +429,8 @@ def run_lint(paths, select=None, ignore=None, rules=None):
                 f"select/ignore prefix {prefix!r} matches no rule id"
             )
     # Filter the rules themselves, not just their findings: a deselected
-    # rule must not pay its cross-file pass (the lock graph) only to have
-    # every diagnostic dropped afterwards.
+    # rule must not pay its cross-file pass (the lock graph, the captured
+    # call tree) only to have every diagnostic dropped afterwards.
     rules = [rule for rule in rules if _selected(rule.id, select, ignore)]
     for rule in rules:
         rule.begin(modules)

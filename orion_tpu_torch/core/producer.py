@@ -284,8 +284,8 @@ class Producer:
         if not self._observe_takes_cube:
             return None
         space = self.algorithm.space
-        # one dict probe per row against the id cache (no codec work);
-        # misses below encode in ONE bulk call.
+        # lint: disable=PERF001 -- one dict probe per row against the id
+        # cache (no codec work); misses below encode in ONE bulk call.
         rows = [self._cube_cache.get(t.id) for t in trials]
         missing = [i for i, r in enumerate(rows) if r is None]
         if missing:
@@ -581,6 +581,10 @@ class Producer:
             had_duplicate = False
             batch_error = None
             spec_capable = getattr(self.naive_algorithm, "speculation_safe", False)
+            # lint: disable=PERF001 -- per-slot outcome handling: the
+            # register_suggestion hook is a per-point plugin API (gated to
+            # algorithms that actually override it), everything else here
+            # is O(1) bookkeeping per slot.
             for slot, outcome in enumerate(outcomes):
                 if isinstance(outcome, DuplicateKeyError):
                     # The point IS durably registered (by us earlier or by a
@@ -743,6 +747,9 @@ class Producer:
         try:
             # Condition each trial onto this naive copy AT MOST ONCE (the
             # set resets with every naive rebuild).
+            # lint: disable=PERF001 -- plugin-compat boundary: the lie
+            # strategy and register_suggestion hooks are per-point APIs;
+            # this path only runs for speculation-safe algorithms.
             fresh = [
                 t for t in registered_trials
                 if t.id not in self._spec_conditioned

@@ -290,7 +290,7 @@ def compute_batch_ids(experiment, params_rows, lie=False):
         key_set = frozenset(order)
     ids = []
     md5 = hashlib.md5
-    # the md5 identity is per-trial by contract
+    # lint: disable=PERF001 -- the md5 identity is per-trial by contract
     # (it IS the storage unique index); everything row-invariant (sort
     # order, key reprs, experiment prefix) is hoisted above, leaving one
     # string assembly + hash per row.

@@ -114,8 +114,10 @@ def sample_memory(force=False):
 
 
 def _sample_device(stats):
-    """Allocator accounting per card; nothing without a card."""
-    if not stats:
+    """Allocator accounting per card; nothing without a card.  Guarded here
+    as well as in :func:`sample_memory`: its arguments are built by
+    generators, which must not run with telemetry off."""
+    if not stats or not TELEMETRY.enabled:
         return
     live = {dev: int(s.get("allocated_bytes.all.current", 0)) for dev, s in stats.items()}
     TELEMETRY.set_gauge("memory.device_live_bytes", sum(live.values()))
@@ -126,12 +128,13 @@ def _sample_device(stats):
     TELEMETRY.set_gauge("memory.device_peak_bytes",
                         sum(int(s.get("allocated_bytes.all.peak", 0)) for s in stats.values()))
     # A card that held bytes once but holds none now publishes 0, not its
-    # last value.
-    for dev in _DEVICE_GAUGE_NAMES:
+    # last value.  Each card's gauge name is minted once (_device_gauge_name).
+    for dev, name in list(_DEVICE_GAUGE_NAMES.items()):
         if dev not in live:
-            TELEMETRY.set_gauge(_device_gauge_name(dev), 0)
+            TELEMETRY.set_gauge(name, 0)
     for dev, nbytes in live.items():
-        TELEMETRY.set_gauge(_device_gauge_name(dev), nbytes)
+        name = _device_gauge_name(dev)
+        TELEMETRY.set_gauge(name, nbytes)
 
 
 def _sample_histories():
@@ -143,12 +146,14 @@ def _sample_histories():
     TELEMETRY.set_gauge("memory.history_count", stats["device_count"])
     buckets = stats["device_buckets"]
     # Gauges are never deleted: a bucket every history has grown out of is
-    # zeroed, or its stale count would outlive it.
-    for cap in _BUCKET_GAUGE_NAMES:
+    # zeroed, or its stale count would outlive it.  Each bucket's gauge
+    # name is minted once (_bucket_gauge_name).
+    for cap, name in list(_BUCKET_GAUGE_NAMES.items()):
         if cap not in buckets:
-            TELEMETRY.set_gauge(_bucket_gauge_name(cap), 0)
+            TELEMETRY.set_gauge(name, 0)
     for cap, nbytes in buckets.items():
-        TELEMETRY.set_gauge(_bucket_gauge_name(cap), nbytes)
+        name = _bucket_gauge_name(cap)
+        TELEMETRY.set_gauge(name, nbytes)
 
 
 def _sample_graph_cache():

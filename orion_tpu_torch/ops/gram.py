@@ -154,7 +154,8 @@ def fused_gram(xa, xb, inv_lengthscales, amplitude, *, kind="matern52"):
     if kind not in _KINDS:
         raise ValueError(f"unknown kernel {kind!r}")
     if not torch.is_tensor(amplitude):
-        amplitude = torch.tensor(amplitude, dtype=torch.float32, device=xa.device)
+        # A fill on the device, not a host copy: this runs inside captures.
+        amplitude = torch.full((), amplitude, dtype=torch.float32, device=xa.device)
     inputs = (xa, xb, inv_lengthscales, amplitude)
     if any(t.requires_grad for t in inputs):
         raise ValueError("fused_gram is forward-only; an input requires grad")

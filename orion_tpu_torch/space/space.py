@@ -201,7 +201,8 @@ class Space:
             if columnar and params_list.has_column(dim.name):
                 col = params_list.column(dim.name)
             else:
-                # A plain dict list has no columns to pull; one gather per dim.
+                # lint: disable=PERF001 -- plugin-compat boundary: a plain
+                # dict list has no columns to pull; one gather per dim.
                 col = [p[dim.name] for p in params_list]
             if isinstance(dim, Categorical):
                 vals = np.asarray(dim.to_index_column(col))

@@ -526,7 +526,7 @@ class DocumentStorage(BaseStorage):
         q-batch instead of q), one wire request on the network backend, one
         lock/load/dump cycle on the pickled file."""
         now = time.time()
-        # Trial-object compat path (plugins and
+        # lint: disable=PERF001 -- Trial-object compat path (plugins and
         # direct callers hand real Trials); the producer's columnar round
         # rides register_trial_docs below instead.
         for trial in trials:
@@ -534,11 +534,11 @@ class DocumentStorage(BaseStorage):
         if not self._db_batch_capable():
             return super().register_trials(trials)
         results = self._db_batch(
-            # per-trial to_dict IS this compat
+            # lint: disable=PERF001 -- per-trial to_dict IS this compat
             # path's contract; the columnar twin builds docs in one pass.
             [("write", ["trials", trial.to_dict()], {}) for trial in trials]
         )
-        # O(1) zip per slot pairing outcomes back
+        # lint: disable=PERF001 -- O(1) zip per slot pairing outcomes back
         # to their trials.
         return [
             result if isinstance(result, Exception) else trial
@@ -559,7 +559,7 @@ class DocumentStorage(BaseStorage):
         (``storage.commit`` span) for dashboard continuity."""
         if not self._db_batch_capable():
             out = []
-            # loop fallback for backends without
+            # lint: disable=PERF001 -- loop fallback for backends without
             # a batch primitive; the hot path is the _db_batch leg below.
             for doc in docs:
                 try:
@@ -567,7 +567,7 @@ class DocumentStorage(BaseStorage):
                 except Exception as exc:
                     out.append(exc)
             return out
-        # one wire/transaction sub-op per doc IS
+        # lint: disable=PERF001 -- one wire/transaction sub-op per doc IS
         # the batch primitive's slot shape (per-slot outcomes require it).
         return self._db_batch([("write", ["trials", doc], {}) for doc in docs])
 

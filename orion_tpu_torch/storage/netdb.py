@@ -1826,7 +1826,7 @@ class NetworkDB:
                 try:
                     self._connect()
                 except (OSError, ConnectionError) as exc:
-                    # connect failed pre-send: nothing applied
+                    # lint: disable=STO003 -- connect failed pre-send: nothing applied
                     raise DatabaseError(
                         f"cannot connect to {self.host}:{self.port} for "
                         f"pipeline of {len(ops)} ops: {exc}"
@@ -1952,7 +1952,7 @@ class NetworkDB:
                     # so retrying on a fresh connection cannot double-apply.
                     self._close()
                     if attempt:
-                        # send-phase loss: nothing applied
+                        # lint: disable=STO003 -- send-phase loss: nothing applied
                         raise DatabaseError(
                             f"cannot send batch of {len(ops)} ops to "
                             f"{self.host}:{self.port}: {exc}"

@@ -1403,14 +1403,14 @@ class ShardedNetworkDB:
             address = self.replica_provisioner(shard.index)
             host, _, port = str(address).rpartition(":")
             if not host or not port:
-                raise DatabaseError(  # caught by this method's own except; retried next sweep, never a client reply
+                raise DatabaseError(  # lint: disable=STO004 -- caught by this method's own except; retried next sweep, never a client reply
                     f"provisioner returned {address!r}; expected host:port"
                 )
             result = shard.primary._call(
                 "adopt_replica", {"address": f"{host}:{int(port)}"}
             ) or {}
             if not result.get("adopted"):
-                raise DatabaseError(  # caught by this method's own except; retried next sweep, never a client reply
+                raise DatabaseError(  # lint: disable=STO004 -- caught by this method's own except; retried next sweep, never a client reply
                     f"shard {shard.index} primary refused to adopt "
                     f"{address!r}: {result}"
                 )

@@ -414,8 +414,8 @@ def test_cli_lists_only_the_ported_commands(capsys):
 
     commands = build_parser()._subparsers._group_actions[0].choices
     assert sorted(commands) == ["audit", "db", "doctor", "flight-record", "hunt", "info",
-                                "init-only", "insert", "list", "metrics", "profile", "serve",
-                                "setup", "status", "test-db", "top", "trace", "tsan"]
+                                "init-only", "insert", "lint", "list", "metrics", "profile",
+                                "serve", "setup", "status", "test-db", "top", "trace", "tsan"]
     with pytest.raises(SystemExit):
         main(["--version"])
     assert capsys.readouterr().out.startswith("orion-tpu-torch ")

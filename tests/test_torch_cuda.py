@@ -782,7 +782,7 @@ def test_shared_pool_holds_at_most_one_and_a_half_of_the_largest_signature(cuda)
     import gc
 
     from orion_tpu_torch.algo import tpu_bo as tbo
-    from orion_tpu_torch.algo.step_graphs import StepGraphs
+    from orion_tpu_torch.algo.step_graphs import POOL_BOUND, StepGraphs
 
     plans = _signature_plans(cuda)
     alone = {}
@@ -803,7 +803,130 @@ def test_shared_pool_holds_at_most_one_and_a_half_of_the_largest_signature(cuda)
                       "largest_alone_bytes": largest,
                       "alone_bytes": sorted(alone.values())}))
     assert shared.captured_count() == len(plans)
-    assert shared.pool_bytes() <= 1.5 * largest
+    assert shared.pool_bytes() <= POOL_BOUND * largest
+
+
+def _capture_line(graphs, plan):
+    """Capture ``plan`` into ``graphs``: its line (no entry outlives it)."""
+    from orion_tpu_torch.algo import tpu_bo as tbo
+
+    t0 = time.perf_counter()
+    _, entry, missed = graphs.run(tbo._suggest_step, plan.signature, plan.arrays, plan.statics)
+    assert missed
+    return {"q": plan.statics["q"], "ms": (time.perf_counter() - t0) * 1e3,
+            "pool_bytes": entry.pool_bytes, "grew_bytes": entry.grew_bytes,
+            "alone_bytes": entry.alone_bytes, "cache_pool_bytes": graphs.pool_bytes(),
+            "fresh_pools": graphs.fresh_pools, "alone_captures": graphs.alone_captures,
+            "stranded_bytes": graphs.stranded_bytes}
+
+
+def _ascending_q_captures(graphs, plans):
+    """Capture ``plans`` in order into ``graphs``: one line a capture."""
+    return [_capture_line(graphs, plan) for plan in plans]
+
+
+@pytest.mark.cuda
+def test_ascending_q_captures_start_a_fresh_pool_and_stay_under_the_bound(cuda, monkeypatch):
+    """The q buckets 8 ... 1024 at the main path's 256-row buffer, captured
+    smallest first (``chip_smoke.py``'s ``diagnosis`` (b) order): with the
+    fresh-pool rule off, the shared pool passes 1.5x the q=1024 signature's
+    pool alone (each q doubling made a segment the next cannot reuse); with
+    it on, the cache's pools and every graph pool of the process stay
+    under, a given-up pool is handed back to the device, and the entries
+    left replay bitwise as their eager rounds.  Prints each capture's ms,
+    pool bytes, growth and footprint measured alone."""
+    import gc
+
+    from orion_tpu_torch.algo import step_graphs
+    from orion_tpu_torch.algo import tpu_bo as tbo
+    from orion_tpu_torch.algo.step_graphs import POOL_BOUND, StepGraphs, graph_pool_bytes
+
+    plans = sorted((p for p in _signature_plans(cuda)
+                    if p.signature[0][0] == 256 and p.signature[0][1] == 6),
+                   key=lambda p: p.statics["q"])
+    plans = list({p.statics["q"]: p for p in plans}.values())
+    assert [p.statics["q"] for p in plans] == [8, 16, 32, 64, 128, 256, 512, 1024]
+
+    def fresh(run):
+        graphs = StepGraphs()
+        out = run(graphs)
+        pool = graphs.pool_bytes()
+        return graphs, out, pool
+
+    def release(graphs):
+        graphs.reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = graph_pool_bytes()  # earlier tests' live graphs
+    graphs, _, alone = fresh(lambda g: _ascending_q_captures(g, plans[-1:]))
+    release(graphs)
+    with monkeypatch.context() as patch:
+        patch.setattr(step_graphs, "POOL_BOUND", float("inf"))
+        graphs, without_rule, pool_without = fresh(lambda g: _ascending_q_captures(g, plans))
+    release(graphs)
+    graphs, with_rule, pool_with = fresh(lambda g: _ascending_q_captures(g, plans))
+    gc.collect()
+    torch.cuda.empty_cache()  # the dead graphs' pools: only live ones stay
+    process = graph_pool_bytes() - before
+    print(json.dumps({"largest_alone_bytes": alone, "without_rule": without_rule,
+                      "pool_without_rule": pool_without, "with_rule": with_rule,
+                      "pool_with_rule": pool_with, "process_graph_pool_bytes": process,
+                      "ratio_without": pool_without / alone, "ratio_with": pool_with / alone,
+                      "process_ratio": process / alone}))
+    assert pool_without > POOL_BOUND * alone
+    assert max(pool_with, process) <= POOL_BOUND * alone and graphs.fresh_pools >= 1
+    assert all(line["stranded_bytes"] == 0 for line in with_rule) and process == pool_with
+    assert 1024 in [entry.statics["q"] for _dev, _sig, entry in graphs.entries()]
+    last = plans[-1]
+    (rows, state), _entry, missed = graphs.run(tbo._suggest_step, last.signature, last.arrays,
+                                               last.statics)
+    eager_rows, eager_state = tbo._suggest_step(*last.arrays, **last.statics)
+    assert not missed and torch.equal(rows, eager_rows)
+    assert torch.equal(state.alpha.view(torch.int32), eager_state.alpha.view(torch.int32))
+    release(graphs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["host read", "python number"])
+def test_planted_capture_case_and_its_twin_behave_as_lint_predicts(cuda, case):
+    """One planted case of ``tests/fixtures/torch_lint/capture_cases.py``
+    and its safe twin: the lint flags the case and not the twin; on the
+    card the case fails to capture (JIT001) or replays a stale value
+    (JIT003), and the twin captures and replays equal to its eager run."""
+    import importlib.util
+    import inspect
+    import os
+
+    from orion_tpu_torch.analysis import run_lint
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "torch_lint",
+                        "capture_cases.py")
+    spec = importlib.util.spec_from_file_location("capture_cases", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    rule, _name, flagged_site, flagged_body, safe_site, safe_body = next(
+        c for c in cases.CASES if c[1] == case)
+    diagnostics = run_lint([path], select=["JIT"])
+
+    def linted(*fns):
+        spans = []
+        for fn in fns:
+            lines, first = inspect.getsourcelines(fn)
+            spans.append(range(first, first + len(lines)))
+        return any(d.rule_id == rule and any(d.line in span for span in spans)
+                   for d in diagnostics)
+
+    captured, fresh = cases.card_verdict(flagged_site, flagged_body, cuda)
+    safe_captured, safe_fresh = cases.card_verdict(safe_site, safe_body, cuda)
+    print(json.dumps({"rule": rule, "case": case, "flagged": [captured, fresh],
+                      "safe": [safe_captured, safe_fresh]}))
+    assert linted(flagged_site, flagged_body) and not linted(safe_site, safe_body)
+    assert not (captured and fresh)
+    assert captured == (rule == "JIT003")
+    assert safe_captured and safe_fresh
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@ neither JAX (``jax``, ``jaxlib``, ``optax``) nor any module of the JAX
 package ``orion_tpu`` — matched as the exact module or a dotted prefix, so
 ``orion_tpu_torch`` itself does not count.  The telemetry plane's, the
 network plane's, the day-2 operations', the device plane's, the
-doctor's and sanitizer's, and the suggest gateway's modules are also
-checked by name, and for importing without side effects."""
+doctor's and sanitizer's, the suggest gateway's and the static analysis'
+modules are also checked by name, and for importing without side
+effects."""
 
 import ast
 import os
@@ -306,6 +307,40 @@ def test_serve_plane_stands_alone():
         "assert threading.active_count() == 1, threading.enumerate()\n"
         "assert not torch.cuda.is_initialized()\n"
         "assert STEP_GRAPHS.entries() == []\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+STATIC_ANALYSIS = ("analysis.engine", "analysis.jit_rules", "analysis.lock_rules",
+                   "analysis.perf_rules", "analysis.storage_rules", "analysis.telemetry_rules",
+                   "cli.lint", "cli.docgen")
+
+
+def test_static_analysis_stands_alone():
+    """The rule families and the ``lint`` and ``docgen`` commands are among
+    the checked files, and in a fresh interpreter importing the rules and
+    linting a fixture with every family loads neither JAX nor
+    ``orion_tpu`` (not even its JAX-free ``orion_tpu.analysis``) nor
+    torch: the lint reads source, it never imports what it checks."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in STATIC_ANALYSIS:
+        base = os.path.join("orion_tpu_torch", *name.split("."))
+        assert base + ".py" in files or os.path.join(base, "__init__.py") in files, name
+    modules = [f"orion_tpu_torch.{name}" for name in STATIC_ANALYSIS if "cli" not in name]
+    fixture = os.path.join(ROOT, "tests", "fixtures", "torch_lint", "capture_rules_cases.py")
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from orion_tpu_torch.analysis import run_lint\n"
+        f"assert run_lint([{fixture!r}])\n"
+        "assert 'torch' not in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

@@ -21,7 +21,7 @@ from orion_tpu.analysis import engine as ref_engine
 from orion_tpu.analysis import lock_rules as ref_lock_rules
 from orion_tpu.analysis import sanitizer as ref_sanitizer
 from orion_tpu_torch.analysis import engine, format_human, format_json, rule_catalog, run_lint
-from orion_tpu_torch.analysis import sanitizer
+from orion_tpu_torch.analysis import lock_rules, sanitizer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "lint")
@@ -56,10 +56,11 @@ def _expected(path):
 @pytest.mark.parametrize("path", _fixture_paths(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_lock_rules_give_the_reference_diagnostics(path):
     """Every fixture, the engine's own LNT findings included (malformed
-    suppressions, always reported)."""
-    got = _diags(run_lint([path]))
+    suppressions, always reported), under the LCK family: selected by
+    prefix, and run alone."""
+    got = _diags(run_lint([path], select=["LCK"]))
     assert got == _ref_lck([path])
-    assert got == _diags(run_lint([path], select=["LCK"]))
+    assert got == _diags(run_lint([path], rules=[cls() for cls in lock_rules.LOCK_RULES]))
 
 
 @pytest.mark.parametrize("name", sorted(f for f in os.listdir(FIXTURES)
@@ -86,7 +87,7 @@ def test_every_lock_rule_has_a_firing_fixture():
     for name in os.listdir(FIXTURES):
         for ids in _expected(os.path.join(FIXTURES, name)).values():
             annotated |= ids
-    catalog = rule_catalog()
+    catalog = [r for r in rule_catalog() if r[0].startswith("LCK")]
     assert [rule_id for rule_id, _, _ in catalog] == ["LCK001", "LCK002", "LCK003"]
     assert {rule_id for rule_id, _, _ in catalog} <= annotated
     ref = {r[0]: r for r in ref_engine.rule_catalog()}
@@ -174,8 +175,7 @@ def test_cross_check_matches_the_reference(tmp_path):
 def test_engine_reports_bad_paths_and_refuses_unknown_prefixes(tmp_path):
     """A missing path, a non-Python file, an empty directory and a file
     that does not parse are findings, as in the reference; a select
-    prefix no registered rule matches raises — the port registers the LCK
-    family only, so the reference's other families' prefixes raise too."""
+    prefix no registered rule matches raises, as a misspelt family does."""
     (tmp_path / "empty").mkdir()
     (tmp_path / "notes.txt").write_text("x")
     (tmp_path / "broken.py").write_text("def f(:\n")
@@ -184,7 +184,7 @@ def test_engine_reports_bad_paths_and_refuses_unknown_prefixes(tmp_path):
     got = _diags(run_lint(paths))
     assert got == _ref_lck(paths)
     assert sorted(d["rule"] for d in got) == ["LNT002", "LNT003", "LNT003", "LNT003"]
-    for prefix in ("JIT", "STO", "TEL", "PERF", "LK"):
+    for prefix in ("LK", "JT", "ST0", "PREF"):
         with pytest.raises(ValueError, match="matches no rule id"):
             run_lint([str(tmp_path / "broken.py")], select=[prefix])
 
@@ -193,7 +193,7 @@ def test_overlapping_paths_are_linted_once_and_formats_match():
     path = os.path.join(FIXTURES, "lock_cases.py")
     assert engine.iter_python_files([FIXTURES, path]) == ref_engine.iter_python_files(
         [FIXTURES, path])
-    diags = run_lint([FIXTURES, path])
+    diags = run_lint([FIXTURES, path], select=["LCK"])
     assert _diags(diags) == _ref_lck([FIXTURES, path])
     assert format_human(diags) == ref_engine.format_human(
         ref_engine.run_lint([FIXTURES, path],

@@ -1,0 +1,163 @@
+"""Two measurements of ``chip_smoke.py``'s paths on one CUDA card.
+
+``legs`` times, one after the other in one process, each leg of
+``chip_smoke.py`` that a depth cut shortened, at its depth before the cut
+and at its depth after it (``hunt``'s two backends, ``cli``'s one worker,
+``evc``, ``network`` (a) and (b), ``serve`` (b)): one JSON line a leg and
+depth, with its seconds.
+
+``mix`` runs the main path's ``tpu_bo`` through an ``ExperimentClient`` on
+memory storage whose q bucket changes from round to round, as a hunt's does
+when its workers ask for different batch sizes: one JSON line with each
+round's ms, the captures (``cuda_graph.recaptures``), and the step graphs'
+pool beside every graph pool of the process.  It uses only the package's
+entry points, so another checkout of the package can run it too, to compare
+two versions on one card in one call::
+
+    python3 tests/torch_chip_legs.py legs
+    PYTHONPATH=. python3 tests/torch_chip_legs.py mix --label change
+    PYTHONPATH=<other checkout> python3 tests/torch_chip_legs.py mix --label parent
+"""
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: The mix's q for each round after the first, random, one.
+MIX_QS = (1024, 256, 1024, 64, 512, 1024, 128, 1024, 256, 1024)
+MIX_ALGO = {"n_init": 16, "n_candidates": 16384, "fit_steps": 40, "local_frac": 0.3, "seed": 0}
+
+
+def _graph_pool_bytes():
+    """Every private (graph) pool's reserved bytes, from the allocator."""
+    return sum(int(seg["total_size"]) for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id") or (0, 0)) != (0, 0))
+
+
+def mix(label):
+    import gc
+
+    import orion_tpu_torch.device  # noqa: F401  (precision switches)
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+    from orion_tpu_torch.benchmarks.functions import hartmann6
+    from orion_tpu_torch.client.experiment import ExperimentClient
+    from orion_tpu_torch.core.experiment import build_experiment
+    from orion_tpu_torch.storage.base import create_storage
+    from orion_tpu_torch.telemetry import TELEMETRY
+
+    device = torch.device("cuda")
+    TELEMETRY.enabled = True
+    storage = create_storage({"type": "memory"})
+    exp = build_experiment(storage, "mix", priors={f"x{i}": "uniform(0, 1)" for i in range(6)},
+                           max_trials=100000, pool_size=8,
+                           algorithms={"tpu_bo": dict(MIX_ALGO)}).instantiate(seed=0,
+                                                                              device=device)
+    client = ExperimentClient(exp)
+    rounds = []
+    for q in (72,) + MIX_QS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trials = client.suggest(q)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cube = torch.as_tensor(exp.space.params_to_cube([t.params for t in trials]),
+                               device=exp.algorithm.device)
+        client.observe_all(trials, hartmann6(cube).cpu().numpy().tolist())
+        rounds.append({"q": q, "suggest_ms": ms,
+                       "captures": TELEMETRY.snapshot()["counters"].get(
+                           "cuda_graph.recaptures", 0)})
+    gc.collect()
+    torch.cuda.empty_cache()  # the dead graphs' pools: only live ones stay
+    gp = rounds[1:]
+    print(json.dumps({
+        "label": label, "package": os.path.dirname(orion_tpu_torch.device.__file__),
+        "rounds": rounds, "gp_suggest_ms_total": sum(r["suggest_ms"] for r in gp),
+        "captures": rounds[-1]["captures"], "signatures": len(STEP_GRAPHS.entries()),
+        "step_graphs_pool_bytes": STEP_GRAPHS.pool_bytes(),
+        "process_graph_pool_bytes": _graph_pool_bytes(),
+        "fresh_pools": getattr(STEP_GRAPHS, "fresh_pools", None),
+        "alone_captures": getattr(STEP_GRAPHS, "alone_captures", None),
+        "smi": _smi()}), flush=True)
+
+
+def _smi():
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True
+                          ).stdout.strip()
+
+
+def legs():
+    sys.path.append(ROOT)
+    import chip_smoke as cs
+    import orion_tpu_torch.device  # noqa: F401  (precision switches)
+    from orion_tpu_torch.storage.base import create_storage
+
+    device = torch.device("cuda")
+    cs.phase_build()
+    print(json.dumps({"smi": _smi()}), flush=True)
+
+    def timed(leg, depth, fn):
+        t0 = time.perf_counter()
+        fn()
+        print(json.dumps({"leg": leg, "depth": depth,
+                          "seconds": time.perf_counter() - t0}), flush=True)
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        def fresh(name):
+            path = os.path.join(tmp, name)
+            os.makedirs(path)
+            return path
+
+        for rounds in (5, 4):
+            run_dir = fresh(f"hunt{rounds}")
+            for backend in ("pickled", "memory"):
+                storage = create_storage({"type": backend,
+                                          "path": os.path.join(run_dir, "hunt.pkl")})
+                timed(f"hunt {backend}", rounds,
+                      lambda: cs.run_hunt(device, storage, rounds=rounds))
+        for trials, evc in ((128, 32), (32, 16)):
+            run_dir = fresh(f"cli{trials}")
+            timed("cli one worker", trials,
+                  lambda: cs.run_cli_hunt(run_dir, device, max_trials=trials))
+            timed("evc", evc, lambda: cs.run_evc_chain(run_dir, device, max_trials=evc))
+        for trials in (64, 32):
+            run_dir = fresh(f"server{trials}")
+            timed("network server", trials,
+                  lambda: cs.run_network_server(run_dir, device, max_trials=trials))
+            run_dir = fresh(f"shards{trials}")
+            timed("network shards", trials,
+                  lambda: cs.run_network_shards(run_dir, device, max_trials=trials))
+        for trials in (16, 8):
+            run_dir = fresh(f"serve{trials}")
+            gateway = cs._ServeProcess(run_dir, cs._free_port(),
+                                       os.path.join(run_dir, "gateway.pkl"))
+            gateway.start()
+            try:
+                timed("serve workers", trials,
+                      lambda: cs.run_serve_workers(run_dir, device, gateway, max_trials=trials))
+            finally:
+                gateway.kill()
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("what", choices=("legs", "mix"))
+    parser.add_argument("--label", default="this checkout")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_chip_legs: no CUDA device", file=sys.stderr)
+        return 1
+    legs() if args.what == "legs" else mix(args.label)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
