@@ -149,10 +149,13 @@ non-zero; nothing is caught and passed over):
    document equal on the destination, the source copy and the override
    gone, ``audit --all`` clean; the moved 256-trial experiment resumed for
    one GP round.  (b) Two workers hunt a 256-trial experiment on the old
-   stanza while ``db drain``, started 8 s after them, empties its shard (which
-   holds one of (b)'s experiments too): their GP rounds register during
-   the drain and they
-   complete trials after the flip (the ``moved`` override routes them);
+   stanza while ``db drain``, started with them, empties its shard (which
+   holds one of (b)'s experiments too).  The drain's first copy waits
+   until the store shows the workers' first GP round registered, and the
+   workers' trials wait (the user script polls a file) until the drain has
+   fenced the experiment, so on a host of any speed their GP rounds
+   register during the drain and they complete trials after the flip (the
+   ``moved`` override routes them);
    the fence window, the placement states polled every 25 ms and the
    workers' ``storage.retries``; ``db drain --dry-run`` shows nothing
    resident; the survivor stanza rolled out, the drained shard's servers
@@ -245,7 +248,25 @@ non-zero; nothing is caught and passed over):
    warm-up round): the Python frames of every sync, none inside a
    function the capture rules treat as captured; the syncs and any other
    warning counted.
-18. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+18. ``mesh``: the multi-device mesh (``orion_tpu_torch.algo.sharding``)
+   on 4 logical slots of the card, the main path's configuration.  (a) A
+   1-slot mesh against no mesh, the capture round and a replay: rows, GP
+   fit and health bitwise.  (b) 4 slots against no mesh, the capture round
+   and 3 replays: rows and fit bitwise, health within rtol 1e-6;
+   ``fused_gram`` launched 4 times a sharded round at 4096 x 256 x 6
+   (zeroed just before the round, read just after), each slot's chunk of a
+   pool held against the plain version; placement fractions of 0.25; eager
+   and replayed ms of both arms beside the card's name and power limit.
+   (c) ``asha_bo``, ``tpe`` and ``bohb`` at their presets on 4 slots
+   against unsharded, in lockstep: equal suggestions each round, a round
+   scored over the slots in each.  (d) Eight sharded ``tpu_bo`` tenants
+   coalesced tenant-parallel (lane i on slot i % 4) against the same
+   tenants served alone: rows and GPState bitwise.  (e) Doctor rule DX006
+   silent on the sharded round's health and on the gateway's fields of
+   (d), firing on the same record with its placement collapsed onto one
+   slot.  Logical slots measure the code path, not a speed-up from more
+   cards.
+19. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -1127,7 +1148,8 @@ USER_SCRIPT = r"""#!%s -S
 # `-x0 V ... -x5 V [--log PATH [--hold-after N --hold-seconds S]]`; `--log`
 # appends the trial's id to PATH, one line an execution; with `--hold-after`,
 # the first trial to start after N others writes its id to PATH.held and
-# runs S seconds longer.
+# runs S seconds longer.  With HARTMANN6_HOLD_WHILE=FILE in the environment,
+# a trial waits while FILE exists (at most 600 s) before it reports.
 import math
 import os
 import sys
@@ -1158,6 +1180,10 @@ if "--hold-after" in args:
             os.write(held, os.environ["ORION_TRIAL_ID"].encode())
             os.close(held)
             time.sleep(float(args["--hold-seconds"]))
+hold = os.environ.get("HARTMANN6_HOLD_WHILE")
+deadline = time.time() + 600.0
+while hold and os.path.exists(hold) and time.time() < deadline:
+    time.sleep(0.05)
 report_results([{"name": "objective", "type": "objective", "value": y}])
 """
 
@@ -2650,10 +2676,12 @@ def phase_network(device, tmp, telemetry_trials_per_s):
 #: grown ring's plan moves a share of experiments comparable with 1/3.
 DAY2_FILLERS = 4
 DAY2_FILLER_TRIALS = 8
-#: Seconds between the live drain's workers starting and the drain.
-DAY2_DRAIN_AFTER_S = 8.0
 #: Trials the live drain's two workers run past the history.
 DAY2_LIVE_TRIALS = 64
+#: Seconds the live drain's workers start after the drain (0 here;
+#: ``tests/torch_chip_legs.py drain`` sets 40 to stand for a slow host, whose
+#: workers register their first GP round that much later).
+DAY2_WORKERS_LATE_S = 0.0
 #: A resumed hunt's budget past the completed trials.
 DAY2_RESUME_TRIALS = 4
 #: The hunts' storage retry policy: a fenced experiment's ops fail with a
@@ -2691,6 +2719,21 @@ for cls, names in ((rebalance.Rebalancer, ("plan", "run", "_copy", "_verify", "_
                    (drain.Drainer, ("plan",))):
     for name in names:
         setattr(cls, name, timed(name, cls.__dict__[name]))
+gate = os.environ.get("DRAIN_COPY_GATE")
+if gate:
+    # The first copy waits while the gate file exists (at most 600 s).
+    copy = rebalance.Rebalancer._copy
+
+    def gated(self, *args, **kwargs):
+        t0 = time.time()
+        while os.path.exists(gate) and time.time() < t0 + 600.0:
+            time.sleep(0.05)
+        calls.append({"call": "gate", "state": None, "experiment": None, "t0": t0,
+                      "t1": time.time()})
+        rebalance.Rebalancer._copy = copy
+        return copy(self, *args, **kwargs)
+
+    rebalance.Rebalancer._copy = gated
 sys.argv = ["orion-tpu-torch", *argv]
 rc = 0
 try:
@@ -2714,21 +2757,22 @@ sys.exit(rc)
 """
 
 
-def run_admin(run_dir, tag, argv, apps_before, apps_allowed=0, timeout=600):
+def run_admin(run_dir, tag, argv, apps_before, apps_allowed=0, timeout=600, env=None):
     """``orion-tpu-torch ARGV`` as a host process through ``ADMIN_WRAPPER``,
     its output in ``TAG.out``: its ``/dev/nvidia*`` files are read from
     ``/proc`` every 0.1 s while it runs and reported by the process itself
     at its end, and ``nvidia-smi``'s compute apps every second; the command
     fails the phase if it held such a file or if the apps ever outnumber
     ``apps_before`` by more than ``apps_allowed`` (the hunt workers running
-    beside it).  Returns (exit code, output, report, wall ms, most apps
-    seen)."""
+    beside it).  ``env`` is added to its environment.  Returns (exit code,
+    output, report, wall ms, most apps seen)."""
     report = os.path.join(run_dir, f"{tag}.report.json")
     out_path = os.path.join(run_dir, f"{tag}.out")
     seen, most_apps, last_smi = set(), 0, None
     with open(out_path, "w") as out:
         proc = subprocess.Popen([sys.executable, "-c", ADMIN_WRAPPER, report, *argv],
-                                env=dict(os.environ, PYTHONPATH=ROOT), cwd=run_dir, stdout=out,
+                                env=dict(os.environ, PYTHONPATH=ROOT, **(env or {})),
+                                cwd=run_dir, stdout=out,
                                 stderr=subprocess.STDOUT, start_new_session=True)
         t0 = time.perf_counter()
         try:
@@ -2844,16 +2888,18 @@ def _pick_name(prefix, accept):
     raise AssertionError(f"day2: no name for {prefix}")
 
 
-def _hunt(run_dir, tag, name, config, max_trials, workers, device, q, timeout, profile=True):
+def _hunt(run_dir, tag, name, config, max_trials, workers, device, q, timeout, profile=True,
+          env=None):
     """``hunt --n-workers W [--profile]`` resuming ``name`` in ``run_dir``
-    (its ``--log`` file as at creation); returns (wall s, profile dir)."""
+    (its ``--log`` file as at creation), ``env`` added to its environment;
+    returns (wall s, profile dir)."""
     script = os.path.join(run_dir, "hartmann6.py")
     prof = os.path.join(run_dir, f"profile-{tag}")
     wall_s = run_cohort([(_cli_command(
         "-n", name, "-c", config, "--pool-size", str(q), "--max-trials", str(max_trials),
         "--n-workers", str(workers), *(["--profile", prof] if profile else []), "--device",
         device.type, script, *CLI_PRIORS, "--log",
-        os.path.join(run_dir, f"executions-{name}.log")), run_dir)], timeout)
+        os.path.join(run_dir, f"executions-{name}.log")), run_dir)], timeout, env=env)
     return wall_s, prof
 
 
@@ -2988,18 +3034,47 @@ def _poll_placements(address, secret, stop, seen):
         client.close()
 
 
+def _drain_gates(address, secret, exp_id, history, gate, hold, seen, stop, opened):
+    """The live drain's two gates, released from the store's side: ``gate``
+    (the drain's first copy waits while it exists) goes once the drained
+    shard holds more of ``exp_id``'s trials than its ``history`` (the
+    workers' first GP round registered), ``hold`` (the workers' trials wait
+    while it exists) once the poller has seen the experiment fenced.
+    ``opened`` gets the wall time of each release."""
+    from orion_tpu_torch.storage.netdb import NetworkDB
+
+    host, _, port = address.rpartition(":")
+    client = NetworkDB(host=host, port=int(port), secret=secret, timeout=30.0)
+    try:
+        while not stop.is_set() and os.path.exists(hold):
+            if os.path.exists(gate):
+                if client.count("trials", {"experiment": exp_id}) > history:
+                    opened["gate"] = time.time()
+                    os.remove(gate)
+            elif (exp_id, "fenced") in seen:
+                opened["hold"] = time.time()
+                os.remove(hold)
+            stop.wait(PLACEMENT_POLL_S)
+    finally:
+        client.close()
+
+
 def run_day2_drain(ctx):
     """(b) Two workers hunt the live ``day2`` experiment while ``db drain``
     empties its shard (which also holds a ``network`` experiment), with
     the old stanza: the ``moved`` override on the drained shard routes them
-    after the flip.  The drain starts shortly after the workers, so their GP
-    rounds register while it runs.  Then ``db drain --dry-run`` (nothing resident), the
-    survivor stanza rolled out and the drained shard's servers stopped, and
-    one worker resuming the hunt.  No observation lost: completions through
-    the router equal the sum of direct per-shard reads and the distinct
-    executions the script logged; each completion on the destination's
-    primary and replica; ``audit --all`` clean; the fence window and the
-    workers' ``storage.retries``."""
+    after the flip.  The drain starts with the workers, and two gates tie
+    the overlap to the store, not to the host's speed: the drain's first
+    copy waits until the workers' first GP round has registered, and every
+    trial of the workers waits (its script polls a file) until the drain
+    has fenced the experiment, so the GP round registers while the drain
+    runs and trials complete after the flip.  Then ``db drain --dry-run``
+    (nothing resident), the survivor stanza rolled out and the drained
+    shard's servers stopped, and one worker resuming the hunt.  No
+    observation lost: completions through the router equal the sum of
+    direct per-shard reads and the distinct executions the script logged;
+    each completion on the destination's primary and replica; ``audit
+    --all`` clean; the fence window and the workers' ``storage.retries``."""
     import threading
 
     from orion_tpu_torch.storage.base import create_storage
@@ -3007,16 +3082,24 @@ def run_day2_drain(ctx):
     servers, run_dir, secret = ctx["servers"], ctx["run_dir"], ctx["secret"]
     name, index = ctx["live"], ctx["drained"]
     exp_id = _exp_id(name)
-    stop, seen, result = threading.Event(), {}, {}
+    gate, hold = os.path.join(run_dir, "drain.gate"), os.path.join(run_dir, "drain.hold")
+    for path in (gate, hold):
+        open(path, "w").close()
+    stop, seen, result, opened = threading.Event(), {}, {}, {}
     poller = threading.Thread(target=_poll_placements,
                               args=(ctx["primaries"][index], secret, stop, seen))
+    gates = threading.Thread(target=_drain_gates, args=(
+        ctx["primaries"][index], secret, exp_id, len(ctx["history"][name]), gate, hold, seen,
+        stop, opened))
     poller.start()
+    gates.start()
 
     def hunt():
         try:
+            time.sleep(DAY2_WORKERS_LATE_S)
             result["wall_s"], result["prof"] = _hunt(
                 run_dir, "drain", name, ctx["grown"], HISTORY + DAY2_LIVE_TRIALS, 2,
-                ctx["device"], ctx["q"], ctx["timeout"])
+                ctx["device"], ctx["q"], ctx["timeout"], env={"HARTMANN6_HOLD_WHILE": hold})
         except BaseException as exc:  # re-raised below, in the phase's thread
             result["error"] = exc
 
@@ -3024,21 +3107,20 @@ def run_day2_drain(ctx):
     t0 = time.time()
     workers.start()
     try:
-        # The drain starts DAY2_DRAIN_AFTER_S after the workers (a worker
-        # takes longer than that to start and build its algorithm) and
-        # spends as long again starting and planning, then copies the
-        # network experiment first: the workers' first rounds, GP rounds
-        # over the 256-trial history, register while it runs.
-        time.sleep(DAY2_DRAIN_AFTER_S)
         drain_started = time.time()
         rc, out, report, drain_ms, apps = run_admin(
             run_dir, "drain", ["db", "drain", str(index), "-c", ctx["grown"]],
-            ctx["apps_before"], apps_allowed=2)
+            ctx["apps_before"], apps_allowed=2, env={"DRAIN_COPY_GATE": gate})
         drained_at = time.time()
     finally:
+        # Whatever happened, nothing may wait on a gate past here.
+        for path in (gate, hold):
+            if os.path.exists(path):
+                os.remove(path)
         workers.join()
         stop.set()
         poller.join()
+        gates.join()
     if "error" in result:
         raise result["error"]
     if rc != 0 or f"shard {index} drained" not in out:
@@ -3118,6 +3200,7 @@ def run_day2_drain(ctx):
             "placement_polled": states, "workers_wall_s": result["wall_s"],
             "drain_window_s": [drain_started - t0, drained_at - t0],
             "migrator_started_s": min(call["t0"] for call in report["calls"]) - t0,
+            "gates_opened_s": {k: v - t0 for k, v in opened.items()},
             "gp_round_registered_s": [submitted[0] - t0, submitted[-1] - t0],
             "trials_ended_before_fence": sum(1 for e in ends if e < fenced),
             "trials_ended_in_fence": sum(1 for e in ends if fenced <= e < moved),
@@ -4442,6 +4525,309 @@ def phase_lint(device):
     return launches
 
 
+#: The ``mesh`` phase: logical slots on one card (``get_mesh`` with a card
+#: index); the main path's configuration sharded over MESH_SLOTS slots.
+MESH_SLOTS = 4
+MESH_ROUNDS = 3  # replayed rounds of each arm, alternating
+MESH_TENANTS = 8
+MESH_SHAPE = (ALGO["n_candidates"] // MESH_SLOTS, 256, 6)
+#: (run, priors, function, algorithm config, batch, rounds): each round of
+#: the sharded algorithm against the unsharded one in lockstep.
+MESH_ALGO_RUNS = [
+    ("asha_bo", ACKLEY50, "ackley50", {"asha_bo": ASHA_BO}, 512, 2),
+    ("tpe", _uniform_priors(6), "hartmann6", {"tpe": {}}, 16, 3),
+    ("bohb", ACKLEY50, "ackley50", {"bohb": {"n_candidates": 8192, "min_points": 64}}, 512, 2),
+]
+
+
+def _mesh_algo(card, n_slots, seed):
+    """The main path's ``tpu_bo`` (sharded over ``n_slots`` logical slots of
+    ``card``, or unsharded for None) with a seeded history of N_HISTORY."""
+    kw = {} if n_slots is None else {"use_mesh": True, "n_devices": n_slots}
+    algo = _make_algo(seed, card, **kw)
+    x = np.random.default_rng(seed).uniform(size=(N_HISTORY, 6)).astype(np.float32)
+    _observe(algo, x, _hartmann6(x))
+    return algo
+
+
+def _health_close(got, want, rtol):
+    """Every numeric health field of ``want`` in ``got`` within ``rtol``;
+    returns (all bitwise, largest relative difference)."""
+    worst, bitwise = 0.0, True
+    for key, value in want.items():
+        if not isinstance(value, (int, float)) or isinstance(value, bool):
+            continue
+        other = got[key]
+        bitwise = bitwise and np.float32(other).tobytes() == np.float32(value).tobytes()
+        if value != other:
+            worst = max(worst, abs(other - value) / max(abs(value), 1e-30))
+    if worst > rtol:
+        raise AssertionError(f"mesh: health differs by {worst} > {rtol}: {got} {want}")
+    return bitwise, worst
+
+
+def _fit_equal(a, b):
+    """The fitted part of two GPStates (factor, weights, MLL, hypers) bitwise."""
+    return all(_bitwise_equal(x, y) for x, y in zip([a.chol, a.alpha, a.mll, *a.hypers],
+                                                     [b.chol, b.alpha, b.mll, *b.hypers]))
+
+
+def _mesh_round(meshed, plain, rng, label):
+    """One suggest(Q) of each arm, each with ``fused_gram`` zeroed just
+    before and read just after, then the same 16 new observations: rows
+    and fit bitwise, health within rtol 1e-6.  Returns each arm's wall ms,
+    launches and launch shapes, and the health comparison."""
+    from orion_tpu_torch.ops.gram import fused_gram
+
+    out = {"ms": [], "launches": [], "shapes": [], "cubes": []}
+    for algo in (meshed, plain):
+        fused_gram.launches = 0
+        with _LaunchShapes() as seen:
+            _sync(algo.device)
+            t0 = time.perf_counter()
+            batch = algo.suggest_batch(Q)
+            _sync(algo.device)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(fused_gram.launches)
+        out["shapes"].append(seen.shapes)
+        out["cubes"].append(batch.cube)
+    if not np.array_equal(*out.pop("cubes")):
+        raise AssertionError(f"mesh {label}: rows differ from the unsharded round")
+    if not _fit_equal(meshed._gp_state, plain._gp_state):
+        raise AssertionError(f"mesh {label}: the GP fit differs from the unsharded round's")
+    out["health_bitwise"], out["health_max_rel"] = _health_close(
+        meshed.health_record(), plain.health_record(), 1e-6)
+    x = rng.uniform(size=(16, 6)).astype(np.float32)
+    for algo in (meshed, plain):
+        _observe(algo, x, _hartmann6(x))
+    return out
+
+
+def run_mesh_one_slot(card):
+    """(a) A 1-slot mesh against no mesh: the signature's first round (an
+    eager warm-up round and the capture) and a replay, rows, fit and health
+    bitwise."""
+    meshed, plain = _mesh_algo(card, 1, seed=0), _mesh_algo(card, None, seed=0)
+    rng = np.random.default_rng(10)
+    rounds = [_mesh_round(meshed, plain, rng, "(a)") for _ in range(2)]
+    if not all(r["health_bitwise"] for r in rounds):
+        raise AssertionError(f"mesh (a): health not bitwise: {rounds}")
+    return {"rounds": len(rounds), "round_ms": [r["ms"] for r in rounds],
+            "health_bitwise": True, "mesh_devices": meshed.health_record()["mesh_devices"]}
+
+
+def run_mesh_slots(card):
+    """(b) MESH_SLOTS logical slots against no mesh: the first round (the
+    capture) and MESH_ROUNDS replays, rows and fit bitwise, health within
+    rtol 1e-6; in each replayed sharded round ``fused_gram`` launched
+    MESH_SLOTS times at MESH_SHAPE; each slot's chunk of a pool against the
+    plain version; the placement fractions; eager and replayed ms of both
+    arms.  Returns the line, the sharded rounds' launches and the chunk's
+    kernel case."""
+    from orion_tpu_torch.algo import sharding
+    from orion_tpu_torch.ops.gram import fused_gram, fused_gram_reference
+
+    meshed, plain = _mesh_algo(card, MESH_SLOTS, seed=1), _mesh_algo(card, None, seed=1)
+    rng = np.random.default_rng(11)
+    first = _mesh_round(meshed, plain, rng, "(b)")
+    replays = [_mesh_round(meshed, plain, rng, "(b)") for _ in range(MESH_ROUNDS)]
+    launches = sum(r["launches"][0] for r in replays)
+    shapes = sum((r["shapes"][0] for r in replays), collections.Counter())
+    if launches != MESH_SLOTS * MESH_ROUNDS or set(shapes) != {MESH_SHAPE}:
+        raise AssertionError(f"mesh (b): fused_gram launched {launches} times at "
+                             f"{dict(shapes)} in {MESH_ROUNDS} sharded rounds")
+    health = meshed.health_record()
+    fractions = (health["mesh_util_min_frac"], health["mesh_util_max_frac"])
+    if fractions != (1 / MESH_SLOTS, 1 / MESH_SLOTS):
+        raise AssertionError(f"mesh (b): placement fractions {fractions}")
+    # Each slot's chunk of a pool against the plain version (not counted).
+    state = meshed._gp_state
+    inv, amp = torch.exp(-state.hypers.log_lengthscales), torch.exp(state.hypers.log_amplitude)
+    gen = torch.Generator(device=card).manual_seed(2)
+    pool = sharding.shard_candidates(
+        torch.rand((ALGO["n_candidates"], 6), generator=gen, device=card), meshed._mesh)
+    errs = []
+    for chunk in pool.shards:
+        got, want = fused_gram(chunk, state.x, inv, amp), fused_gram_reference(
+            chunk, state.x, inv, amp)
+        errs.append(float((got - want).abs().max()))
+    limit = 1e-5 * max(1.0, float(amp))
+    if not max(errs) <= limit:
+        raise AssertionError(f"mesh (b): a chunk's fused_gram differs by {errs} > {limit}")
+    chunk = pool.shards[0]
+    bound_ms, bound_by = gram_bound(*MESH_SHAPE)
+    kernel_ms = _graph_ms(lambda: fused_gram(chunk, state.x, inv, amp))
+    case = {"m": MESH_SHAPE[0], "n": MESH_SHAPE[1], "d": MESH_SHAPE[2],
+            "max_abs_err": max(errs), "tolerance": limit, "ms": kernel_ms,
+            "plain_ms": _graph_ms(lambda: fused_gram_reference(chunk, state.x, inv, amp)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / kernel_ms}
+    eager = {"mesh": [], "plain": []}
+    for _ in range(MESH_ROUNDS):
+        for label, algo in (("mesh", meshed), ("plain", plain)):
+            _sync(card)
+            t0 = time.perf_counter()
+            eager_round(algo, lambda algo=algo: algo.fused_step_plan(Q))
+            _sync(card)
+            eager[label].append((time.perf_counter() - t0) * 1e3)
+    replayed = {"mesh": [r["ms"][0] for r in replays], "plain": [r["ms"][1] for r in replays]}
+    rounds = [first] + replays
+    return {"slots": MESH_SLOTS, "first_round_ms": first["ms"], "replayed_ms": replayed,
+            "median_replayed_ms": {k: statistics.median(v) for k, v in replayed.items()},
+            "eager_ms": eager,
+            "median_eager_ms": {k: statistics.median(v) for k, v in eager.items()},
+            "health_bitwise": all(r["health_bitwise"] for r in rounds),
+            "health_max_rel": max(r["health_max_rel"] for r in rounds),
+            "launches_per_round": launches / MESH_ROUNDS,
+            "launch_shapes": {"x".join(map(str, k)): v for k, v in shapes.items()},
+            "placement": fractions, "chunk_case": case, "smi": smi_line()}, launches, case
+
+
+def run_mesh_algorithms(card, runs=MESH_ALGO_RUNS):
+    """(c) ``asha_bo``, ``tpe`` and ``bohb`` sharded over MESH_SLOTS slots
+    against the unsharded algorithm, in lockstep from one seed: every
+    round's suggestions equal, the GP fit bitwise and the health within
+    rtol 1e-6 where there is one.  A round is sharded where it scored a
+    pool over the slots: ``fused_gram`` launched once a slot (``asha_bo``,
+    zeroed just before the sharded arm's round and read just after) or the
+    mesh's placement written (the KDE rounds); each run needs one."""
+    from orion_tpu_torch.algo.base import create_algo
+    from orion_tpu_torch.benchmarks.functions import BENCHMARKS
+    from orion_tpu_torch.ops.gram import fused_gram
+    from orion_tpu_torch.space.dsl import build_space
+
+    out, launches = {}, 0
+    for name, priors, fn_name, config, batch, rounds in runs:
+        space = build_space(priors)
+        (algo_name, cfg), = config.items()
+        meshed = create_algo(space, {algo_name: dict(cfg, use_mesh=True,
+                                                     n_devices=MESH_SLOTS)},
+                             seed=0, device=card)
+        plain = create_algo(space, config, seed=0, device=card)
+        record = {"rounds": rounds, "ms": [], "sharded": [], "health_max_rel": 0.0}
+        for _ in range(rounds):
+            fused_gram.launches = 0
+            meshed._mesh.last_placement = None
+            _sync(card)
+            t0 = time.perf_counter()
+            got = meshed.suggest(batch)
+            _sync(card)
+            record["ms"].append((time.perf_counter() - t0) * 1e3)
+            launched = fused_gram.launches
+            launches += launched
+            record["sharded"].append(launched >= MESH_SLOTS if algo_name == "asha_bo"
+                                     else meshed._mesh.last_placement is not None)
+            if got != plain.suggest(batch):
+                raise AssertionError(f"mesh (c) {name}: suggestions differ from unsharded")
+            health_m, health_p = meshed.health_record() or {}, plain.health_record() or {}
+            if health_m.get("mesh_devices") != MESH_SLOTS:
+                raise AssertionError(f"mesh (c) {name}: health {health_m}")
+            if getattr(plain, "_gp_state", None) is not None:
+                if not _fit_equal(meshed._gp_state, plain._gp_state):
+                    raise AssertionError(f"mesh (c) {name}: the GP fit differs")
+                record["health_max_rel"] = max(record["health_max_rel"],
+                                               _health_close(health_m, health_p, 1e-6)[1])
+            values = BENCHMARKS[fn_name]["fn"](torch.from_numpy(space.params_to_cube(got)))
+            results = [{"objective": float(v)} for v in values.numpy()]
+            meshed.observe(got, results)
+            plain.observe(got, results)
+        if not any(record["sharded"]):
+            raise AssertionError(f"mesh (c) {name}: no round scored over the slots: {record}")
+        out[name] = record
+    return out, launches
+
+
+def run_mesh_tenants(card):
+    """(d) MESH_TENANTS ``tpu_bo`` tenants sharded over MESH_SLOTS slots,
+    coalesced (tenant-parallel: lane i on slot i % n) against the same
+    tenants served alone (each its sharded round): rows and GPState
+    bitwise; ``fused_gram`` once a lane at the whole pool, against once a
+    slot per tenant alone."""
+    import copy
+
+    from orion_tpu_torch.algo.tpu_bo import run_fused_plan
+    from orion_tpu_torch.ops.gram import fused_gram
+    from orion_tpu_torch.serve.coalesce import LAST_STACK_PLACEMENT, run_coalesced_plans
+
+    tenants = [_mesh_algo(card, MESH_SLOTS, seed=20 + i) for i in range(MESH_TENANTS)]
+    twins = [copy.deepcopy(algo) for algo in tenants]
+    fused_gram.launches = 0
+    _sync(card)
+    t0 = time.perf_counter()
+    alone = [run_fused_plan(algo.fused_step_plan(Q)) for algo in twins]
+    _sync(card)
+    alone_ms, alone_launches = (time.perf_counter() - t0) * 1e3, fused_gram.launches
+    fused_gram.launches = 0
+    t0 = time.perf_counter()
+    coalesced = run_coalesced_plans([algo.fused_step_plan(Q) for algo in tenants])
+    _sync(card)
+    coalesced_ms, coalesced_launches = (time.perf_counter() - t0) * 1e3, fused_gram.launches
+    placement = dict(LAST_STACK_PLACEMENT)
+    for i, ((rows, state), (want_rows, want_state)) in enumerate(zip(coalesced, alone)):
+        if not _bitwise_equal(rows, want_rows) or not all(
+                _bitwise_equal(a, b) for a, b in zip(_state_leaves(state),
+                                                    _state_leaves(want_state))):
+            raise AssertionError(f"mesh (d): tenant {i} differs from its round alone")
+    if (not placement.get("tenant_parallel") or coalesced_launches != MESH_TENANTS
+            or alone_launches != MESH_TENANTS * MESH_SLOTS
+            or placement["util_max_frac"] != 1 / MESH_SLOTS):
+        raise AssertionError(f"mesh (d): placement {placement}, launches "
+                             f"{coalesced_launches} coalesced, {alone_launches} alone")
+    return {"tenants": MESH_TENANTS, "placement": placement, "alone_ms": alone_ms,
+            "coalesced_ms": coalesced_ms, "coalesced_launches": coalesced_launches,
+            "alone_launches": alone_launches, "bitwise_equal": True}, (
+        coalesced_launches + alone_launches)
+
+
+def run_mesh_dx006(card):
+    """(e) Doctor rule DX006 over two snapshots of a sharded round's health:
+    the round as it ran (silent) and the same record with its placement
+    collapsed onto one slot (fires); and the gateway's ``serve_mesh_*``
+    fields of (d)'s dispatch (silent)."""
+    from orion_tpu_torch.algo import sharding
+    from orion_tpu_torch.diagnosis import Snapshot, run_rules
+    from orion_tpu_torch.serve.coalesce import LAST_STACK_PLACEMENT
+
+    meshed = _mesh_algo(card, MESH_SLOTS, seed=1)
+    meshed.suggest_batch(Q)
+    healthy = meshed.health_record()
+    placed = meshed._mesh.last_placement
+    collapsed = dict(healthy, **sharding.mesh_health_fields(
+        meshed._mesh, sharding.Placement((sum(placed),) + (0,) * (len(placed) - 1))))
+    serve = dict(healthy, serve_mesh_devices=LAST_STACK_PLACEMENT["devices"],
+                 serve_mesh_util_min_frac=LAST_STACK_PLACEMENT["util_min_frac"],
+                 serve_mesh_util_max_frac=LAST_STACK_PLACEMENT["util_max_frac"])
+
+    def dx006(record):
+        return [f.message for f in run_rules(Snapshot(health=[record])).findings
+                if f.rule_id == "DX006"]
+
+    out = {"healthy": dx006(healthy), "collapsed": dx006(collapsed), "serve": dx006(serve),
+           "healthy_max_frac": healthy["mesh_util_max_frac"],
+           "collapsed_max_frac": collapsed["mesh_util_max_frac"]}
+    if out["healthy"] or out["serve"] or len(out["collapsed"]) != 1:
+        raise AssertionError(f"mesh (e): DX006 {out}")
+    return out
+
+
+def phase_mesh(device):
+    """The multi-device mesh on MESH_SLOTS logical slots of the card: (a)
+    to (e) above.  One card measures the code path (chunking, the
+    cross-shard reductions, the gather, ``fused_gram`` at the chunk's
+    shape), not a speed-up from more cards.  Returns ``fused_gram``'s
+    launches by run and the chunk's kernel case."""
+    card = torch.device("cuda", torch.device(device).index or torch.cuda.current_device())
+    emit("mesh", run="one_slot", **run_mesh_one_slot(card))
+    slots, slot_launches, case = run_mesh_slots(card)
+    emit("mesh", run="slots", **slots)
+    algos, algo_launches = run_mesh_algorithms(card)
+    emit("mesh", run="algorithms", **algos)
+    tenants, tenant_launches = run_mesh_tenants(card)
+    emit("mesh", run="tenants", **tenants)
+    emit("mesh", run="dx006", **run_mesh_dx006(card))
+    return {"slots": slot_launches, "asha_bo": algo_launches,
+            "tenants": tenant_launches}, case
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -4478,6 +4864,7 @@ def main():
         diagnosis_launches = run("diagnosis", phase_diagnosis, device, tmp)
         serve_launches = run("serve", phase_serve, device, tmp)
     lint_launches = run("lint", phase_lint, device)
+    mesh_launches, mesh_case = run("mesh", phase_mesh, device)
     emit("seconds", **seconds, phases=sum(seconds.values()))
 
     def case(shape):
@@ -4495,7 +4882,7 @@ def main():
                      + sum(telemetry_launches.values()) + sum(network_launches.values())
                      + sum(day2_launches.values()) + device_plane_launches
                      + sum(diagnosis_launches.values()) + sum(serve_launches.values())
-                     + lint_launches),
+                     + lint_launches + sum(mesh_launches.values())),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
                              "hunt": hunt_launches, "cli": sum(cli_launches.values()),
                              "cli_runs": cli_launches, "evc": evc_launches,
@@ -4508,7 +4895,9 @@ def main():
                              "diagnosis": sum(diagnosis_launches.values()),
                              "diagnosis_runs": diagnosis_launches,
                              "serve": sum(serve_launches.values()),
-                             "serve_runs": serve_launches, "lint": lint_launches},
+                             "serve_runs": serve_launches, "lint": lint_launches,
+                             "mesh": sum(mesh_launches.values()),
+                             "mesh_runs": mesh_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],
@@ -4522,6 +4911,7 @@ def main():
         "asha_bo_case": {k: asha_bo_case[k] for k in ("m", "n", "d", "max_abs_err", "ms",
                                                        "plain_ms", "bound_ms", "bound_by",
                                                        "bound_share")},
+        "mesh_case": mesh_case,
         "cases": cases,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,7 +24,8 @@ The serve gateway's hooks (``fused_step_plan``, ``consume_fused_step``,
 promotions first) split a round into its plan, the device round the
 gateway may dispatch with other tenants', and the host's bracket assignment,
 drawing from both streams in :meth:`suggest`'s order.  ``use_mesh=True``
-raises (ROADMAP queue A item 10).
+shards each model round's candidate pool over ``n_devices`` slots, as in
+``tpu_bo`` (the mesh rides in the plan's statics).
 """
 
 import numpy as np
@@ -38,9 +39,11 @@ from orion_tpu_torch.algo.sampling import clamp_objectives
 from orion_tpu_torch.algo.tpu_bo import (
     make_fused_plan,
     maybe_prewarm_fused_step,
+    mesh_record,
     run_fused_plan,
     tr_update_batch,
 )
+from orion_tpu_torch.parallel import device_mesh
 
 
 @algo_registry.register("asha_bo")
@@ -86,8 +89,6 @@ class ASHABO(ASHA):
         use_mesh=False,
         device=None,
     ):
-        if use_mesh:
-            raise NotImplementedError("orion_tpu_torch: the multi-device mesh is not ported yet")
         super().__init__(
             space,
             seed=seed,
@@ -133,6 +134,9 @@ class ASHABO(ASHA):
         self.prewarm_fill = float(prewarm_fill)
         self._prewarmer = BucketPrewarmer()
         self._last_q_bucket = None
+        # The candidate mesh of the fused round (as TPUBO's).
+        self.use_mesh = use_mesh
+        self._mesh = device_mesh(n_devices, device=self.device) if use_mesh else None
         self._tr_length = tr_length_init
         self._tr_succ = 0
         self._tr_fail = 0
@@ -162,8 +166,8 @@ class ASHABO(ASHA):
 
     # The fitted GP state is immutable-by-rebinding; `_hist` and `_host`
     # implement copy-on-write in their own __deepcopy__; the prewarmer's
-    # threads are shared, as in tpu_bo.
-    _share_by_ref = ("space", "_gp_state", "_prewarmer")
+    # threads and the cached mesh are shared, as in tpu_bo.
+    _share_by_ref = ("space", "_gp_state", "_mesh", "_prewarmer")
 
     # Views over the augmented host history.
     @property
@@ -263,7 +267,7 @@ class ASHABO(ASHA):
         maybe_prewarm_fused_step(self, batch=batch)
 
     def _step_kw(self):
-        return dict(
+        kw = dict(
             n_candidates=self.n_candidates, kernel=self.kernel, acq=self.acq,
             fit_steps=self.fit_steps, refit_steps=self.refit_steps,
             local_frac=self.local_frac,
@@ -274,6 +278,9 @@ class ASHABO(ASHA):
             tr_perturb_dims=self.tr_perturb_dims, y_transform=self.y_transform,
             fixed_tail_cols=1,
         )
+        if self._mesh is not None:
+            kw["mesh"] = self._mesh
+        return kw
 
     def _gp_plan(self, num):
         """This round's fidelity-augmented GP acquisition as a
@@ -385,6 +392,8 @@ class ASHABO(ASHA):
         if self._host.count:
             record["best_y"] = float(self._host.best_y)
             record["n_obs"] = int(self._host.count)
+        if self._mesh is not None:
+            record.update(mesh_record(self._mesh))
         state = self._gp_state
         if state is not None and state.health is not None:
             record.update(unpack_device_health(state.health))

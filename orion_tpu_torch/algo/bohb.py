@@ -12,7 +12,9 @@ import numpy as np
 from orion_tpu_torch.algo.base import algo_registry
 from orion_tpu_torch.algo.hyperband import Hyperband
 from orion_tpu_torch.algo.sampling import clamp_objectives
+from orion_tpu_torch.algo.sharding import mesh_health_fields
 from orion_tpu_torch.algo.tpe import good_bad_split, tpe_round
+from orion_tpu_torch.parallel import device_mesh
 
 
 @algo_registry.register("bohb")
@@ -22,7 +24,8 @@ class BOHB(Hyperband):
     Parameters beyond Hyperband's: ``gamma`` (good/bad split quantile),
     ``n_candidates`` (KDE-ratio candidate pool per round), ``min_points``
     (observations a tier needs before it is modelled; default ``dims + 2``)
-    and ``bw_factor``.  ``use_mesh=True`` raises: the mesh is not ported.
+    and ``bw_factor``.  ``use_mesh=True`` scores each TPE round's pool over
+    ``n_devices`` slots, as ``tpe`` does.
     """
 
     # Unlike plain ASHA/Hyperband, observe() feeds cube rows to the tiers.
@@ -42,8 +45,6 @@ class BOHB(Hyperband):
         use_mesh=False,
         device=None,
     ):
-        if use_mesh:
-            raise NotImplementedError("orion_tpu_torch: the multi-device mesh is not ported yet")
         super().__init__(space, seed=seed, num_rungs=num_rungs,
                          reduction_factor=reduction_factor, device=device)
         d = space.n_cols
@@ -55,12 +56,17 @@ class BOHB(Hyperband):
             gamma=self.gamma, n_candidates=self.n_candidates,
             min_points=self.min_points, bw_factor=self.bw_factor,
         )
+        # Candidate-axis sharding of the KDE-ratio scores (as TPE's).
+        self.use_mesh = use_mesh
+        self._mesh = device_mesh(n_devices, device=self.device) if use_mesh else None
         # budget tier -> (x (n, d) unit-cube rows, y (n,)) observation arrays.
         self._tier_x = {}
         self._tier_y = {}
 
     # The per-tier arrays are append-only (rebound); their dicts are
-    # shallow-copied so a clone's inserts don't leak back.
+    # shallow-copied so a clone's inserts don't leak back.  The mesh is a
+    # cached singleton.
+    _share_by_ref = ("_mesh",)
     _share_dicts = ("_tier_x", "_tier_y")
 
     # --- observation --------------------------------------------------------
@@ -104,7 +110,7 @@ class BOHB(Hyperband):
         good, bad = good_bad_split(self._tier_x[tier], self._tier_y[tier], self.gamma)
         good = self._boost_top_rungs(tier, good)
         return tpe_round(self._generator, good, bad, self.n_candidates, int(num),
-                         self.bw_factor, self.device)
+                         self.bw_factor, self.device, mesh=self._mesh)
 
     def _boost_top_rungs(self, tier, good):
         """Prepend the good splits of every budget ABOVE the model tier,
@@ -139,6 +145,8 @@ class BOHB(Hyperband):
                 best = tier_best if best is None else min(best, tier_best)
         if best is not None:
             record["best_y"] = best
+        if self._mesh is not None:
+            record.update(mesh_health_fields(self._mesh))
         return record
 
     # --- state --------------------------------------------------------------

@@ -19,6 +19,7 @@ import torch
 
 from orion_tpu_torch.algo.gp.gp import cho_solve, cholesky, posterior_norm
 from orion_tpu_torch.algo.gp.kernels import cross_kernel_matrix
+from orion_tpu_torch.algo.sharding import ShardedArray
 
 _SQRT2 = 1.4142135623730951
 _MATERN_DF = 5.0
@@ -70,14 +71,9 @@ def sample_rff_draws(generator, n_features, d, q, device):
     return RFFDraws(z, gamma, b, eps)
 
 
-def rff_thompson(draws, state, candidates, q, kind="matern52", n_features=512):
-    """Correlated q-batch Thompson sampling via random Fourier features.
-
-    Approximate the kernel with F cosine features, form the Bayesian linear
-    regression posterior over feature weights (an (F, F) Cholesky), draw q
-    weight vectors jointly, and score ALL candidates with one (m, F) x
-    (F, q) matmul.  Matern-5/2's spectral density is a multivariate
-    Student-t with 5 dof; RBF's is gaussian.  Returns (q,) indices."""
+def _rff_posterior(draws, state, kind, n_features):
+    """The random-feature map and the q jointly drawn weight vectors of
+    :func:`rff_thompson`: ``(w, b, scale, thetas)``, on the state's device."""
     ls = torch.exp(state.hypers.log_lengthscales)
     amp = torch.exp(state.hypers.log_amplitude)
     noise = torch.exp(state.hypers.log_noise)
@@ -90,11 +86,8 @@ def rff_thompson(draws, state, candidates, q, kind="matern52", n_features=512):
     b = draws.b
     scale = torch.sqrt(2.0 * amp / n_features)
 
-    def features(x):
-        return scale * torch.cos(x @ w.T + b[None, :])
-
     y_norm = (state.y - state.y_mean) / state.y_std * state.mask
-    phi = features(state.x) * state.mask[:, None]  # (n_pad, F)
+    phi = _features(state.x, w, b, scale) * state.mask[:, None]  # (n_pad, F)
     # Ridge floor 1e-3 keeps the f32 (F, F) Cholesky conditioned.
     ridge = noise + 1e-3
     a = phi.T @ phi + ridge * torch.eye(n_features, dtype=torch.float32, device=phi.device)
@@ -103,9 +96,46 @@ def rff_thompson(draws, state, candidates, q, kind="matern52", n_features=512):
     # theta ~ N(theta_mean, ridge * A^-1):  theta = mean + sqrt(ridge) L^-T eps
     delta = torch.linalg.solve_triangular(chol_a.T, draws.eps, upper=True)
     thetas = theta_mean[:, None] + torch.sqrt(ridge) * delta  # (F, q)
+    return w, b, scale, thetas
 
-    scores = features(candidates) @ thetas  # (m, q)
+
+def _features(x, w, b, scale):
+    return scale * torch.cos(x @ w.T + b[None, :])
+
+
+def rff_thompson(draws, state, candidates, q, kind="matern52", n_features=512):
+    """Correlated q-batch Thompson sampling via random Fourier features.
+
+    Approximate the kernel with F cosine features, form the Bayesian linear
+    regression posterior over feature weights (an (F, F) Cholesky), draw q
+    weight vectors jointly, and score ALL candidates with one (m, F) x
+    (F, q) matmul.  Matern-5/2's spectral density is a multivariate
+    Student-t with 5 dof; RBF's is gaussian.  Returns (q,) indices.
+
+    On a sharded pool each slot scores its chunk and returns each column's
+    minimum and its first index; the lead slot takes, per column, the first
+    chunk holding the minimum (NaN first, as ``torch.argmin``), so the
+    indices are ``torch.argmin`` over the whole pool."""
+    params = _rff_posterior(draws, state, kind, n_features)
+    if isinstance(candidates, ShardedArray):
+        def chunk_min(chunk, w, b, scale, thetas):
+            scores = _features(chunk, w, b, scale) @ thetas  # (m_chunk, q)
+            local = torch.argmin(scores, dim=0)
+            return torch.gather(scores, 0, local[None])[0], local
+
+        return _first_extreme(candidates, candidates.map(chunk_min, *params), torch.argmin)
+    scores = _features(candidates, *params[:3]) @ params[3]  # (m, q)
     return torch.argmin(scores, dim=0)  # minimization: best draw per sample
+
+
+def _first_extreme(pool, parts, arg):
+    """Join per-chunk ``(values (q,), local indices (q,))`` of a sharded
+    pool into the global ``arg`` (``torch.argmin``/``argmax``) indices: the
+    first chunk holding the extreme, its first index there."""
+    values = pool.gather_stats([v for v, _ in parts])  # (slots, q)
+    index = pool.gather_stats([i + off for (_, i), off in zip(parts, pool.offsets())])
+    chunk = arg(values, dim=0)
+    return torch.gather(index, 0, chunk[None])[0]
 
 
 def select_q(scores, q):
@@ -119,11 +149,23 @@ def acquire(draws, state, candidates, q, kind="matern52", acq="thompson", best=N
             beta=2.0):
     """Pick q candidate indices by the requested acquisition.  ``draws`` is
     :class:`RFFDraws` for ``thompson``, a (q, m) normal ``eps`` for
-    ``marginal_thompson``, unused for ``ei``/``ucb``."""
+    ``marginal_thompson``, unused for ``ei``/``ucb``.  ``candidates`` may be
+    a :class:`~orion_tpu_torch.algo.sharding.ShardedArray`: each slot scores
+    its chunk and the indices equal the whole pool's."""
     if acq == "thompson":
         return rff_thompson(draws, state, candidates, q, kind=kind)
     mean, std = posterior_norm(state, candidates, kind=kind)
     if acq == "marginal_thompson":
+        if isinstance(candidates, ShardedArray):
+            def chunk_max(eps, mean_c, std_c):
+                scores = thompson_scores(eps, mean_c, std_c)  # (q, m_chunk)
+                local = torch.argmax(scores, dim=1)
+                return torch.gather(scores, 1, local[:, None])[:, 0], local
+
+            means, stds = candidates.split(mean, 0), candidates.split(std, 0)
+            parts = [chunk_max(eps, mc, sc) for eps, mc, sc in
+                     zip(candidates.split(draws, 1), means, stds)]
+            return _first_extreme(candidates, parts, torch.argmax)
         return torch.argmax(thompson_scores(draws, mean, std), dim=1)
     if acq == "ei":
         if best is None:

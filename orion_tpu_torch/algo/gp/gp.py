@@ -19,6 +19,7 @@ import torch
 
 from orion_tpu_torch.algo.gp.kernels import cross_kernel_matrix, kernel_matrix
 from orion_tpu_torch.algo.sampling import masked_copula_transform
+from orion_tpu_torch.algo.sharding import ShardedArray
 from orion_tpu_torch.device import resolve_device
 
 JITTER = 1e-5
@@ -190,10 +191,11 @@ def fit_gp(x, y, mask, kind="matern52", n_steps=50, lr=0.08, init=None,
     )
 
 
-def _cross_terms(state, xq, kind):
+def _cross_terms(state, xq, kind, *, route_m=None):
     inv_ls = torch.exp(-state.hypers.log_lengthscales)
     amp = torch.exp(state.hypers.log_amplitude)
-    kqx = cross_kernel_matrix(kind, xq.to(torch.float32), state.x, inv_ls, amp)
+    kqx = cross_kernel_matrix(kind, xq.to(torch.float32), state.x, inv_ls, amp,
+                              route_m=route_m)
     kqx = kqx * state.mask[None, :]
     mean = kqx @ state.alpha
     v = torch.linalg.solve_triangular(state.chol, kqx.T, upper=False)
@@ -211,7 +213,17 @@ def posterior(state, xq, kind="matern52"):
 
 
 def posterior_norm(state, xq, kind="matern52"):
-    """Predictive mean/std in normalized target units (for acquisitions)."""
+    """Predictive mean/std in normalized target units (for acquisitions).
+
+    ``xq`` may be a :class:`~orion_tpu_torch.algo.sharding.ShardedArray`:
+    each slot scores its chunk against a copy of ``state`` (the cross-gram
+    routed on the whole pool's rows), and the per-candidate mean and std
+    come back to the pool's home device."""
+    if isinstance(xq, ShardedArray):
+        parts = xq.map(lambda chunk, st: _cross_terms(st, chunk, kind, route_m=xq.rows), state)
+        mean = xq.gather([mean for mean, _ in parts])
+        var = xq.gather([var for _, var in parts])
+        return mean, torch.sqrt(var)
     mean, var = _cross_terms(state, xq, kind)
     return mean, torch.sqrt(var)
 

@@ -52,14 +52,21 @@ def kernel_matrix(kind, xa, xb, inv_lengthscales, amplitude):
     return _KERNELS[kind](xa, xb, inv_lengthscales, amplitude)
 
 
-def cross_kernel_matrix(kind, xa, xb, inv_lengthscales, amplitude):
+def cross_kernel_matrix(kind, xa, xb, inv_lengthscales, amplitude, *, route_m=None):
     """Forward-only gram for candidate scoring: ``m*n*max(d,1) >=
     _FUSED_MIN_WORK`` goes to :func:`orion_tpu_torch.ops.fused_gram` (on a
     CUDA tensor the hand-written kernel, which runs or raises), anything
     smaller to the differentiable :func:`kernel_matrix`.  Never use above
-    the threshold under autograd: the fused kernel has no gradient."""
+    the threshold under autograd: the fused kernel has no gradient.
+
+    ``route_m``: the rows the route is decided on, where ``xa`` is one
+    slot's chunk of a sharded pool: the round's whole pool, as the
+    reference decides at trace time on the global shape (4 slots of the
+    main path's 16384 x 256 x 6 are chunks under the threshold)."""
     m, d = xa.shape
     n = xb.shape[0]
-    if m * n * max(d, 1) >= _FUSED_MIN_WORK:
+    rows = m if route_m is None else route_m
+    # lint: disable=JIT002 -- route_m is a row count (ShardedArray.rows), a Python int
+    if rows * n * max(d, 1) >= _FUSED_MIN_WORK:
         return fused_gram(xa, xb, inv_lengthscales, amplitude, kind=kind)
     return _KERNELS[kind](xa, xb, inv_lengthscales, amplitude)

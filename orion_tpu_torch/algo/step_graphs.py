@@ -19,14 +19,17 @@ capture or instantiation that fails raises to the caller: there is no eager
 fallback.  A hit copies the inputs into the static buffers, replays, and
 copies the rows and every leaf of the GPState out of the static outputs.
 
-**One pool.**  Every capture of the process allocates from the same
+**One pool a card.**  Every capture on a card allocates from the same
 ``torch.cuda.graph_pool_handle()``, so the pool holds about the largest
-round's working set, not the sum over signatures.  (After a capture fails,
-the allocator refuses to record into that pool again, so the captures after
-it take a new one.)  ``pool_bytes`` counts the allocator's segments of the
-current pool and of every pool the cache gave up whose segments are still
-reserved; :func:`graph_pool_bytes` counts every graph pool of the process,
-whoever made it.
+round's working set there, not the sum over signatures.  (After a capture
+fails, the allocator refuses to record into that pool again, so the
+captures after it take a new one.)  Each card has a pool of its own, held
+to the bound below on its own signatures: rounds of several algorithms on
+several cards (the coalescer's tenant-parallel lanes) never add one card's
+segments to another's.  ``pool_bytes`` counts the allocator's segments of
+the current pools and of every pool the cache gave up whose segments are
+still reserved; :func:`graph_pool_bytes` counts every graph pool of the
+process, whoever made it.
 
 The pool's segments are sized by the captures that made them: the largest
 block a round asks for grows with q (32 MiB at q=8, 512 MiB at q=1024 at
@@ -64,6 +67,18 @@ between them would report a race.
 On the CPU (the caller named it) an entry only marks the signature as seen
 and the eager round runs: the signature bookkeeping, and with it the
 compiler plane's recapture attribution, is the same on both devices.
+
+**A mesh** (``statics["mesh"]``, :mod:`orion_tpu_torch.algo.sharding`).  A
+mesh of logical slots on one card is captured like any round: its chunks
+are views of the pool, every launch is on the card's step stream, and the
+mesh's string (fingerprint and layout) keeps its signature apart.  A mesh
+over distinct cards or ranks runs eagerly and marks its signature as on
+the CPU: its round copies the fitted state to each card and gathers the
+reductions back (and across ranks, ``all_gather``), which one graph on one
+card's stream cannot hold; a graph per slot would split the round into as
+many captures with the copies between them on the host's side, and the
+shard scoring it would replay is a small share of the round (the fit
+dominates, ``PERF.md`` §5).
 
 Launch counts: the ``fused_gram`` wrapper runs in Python only at capture.
 The capture records each launch's shape instead of counting it, and every
@@ -141,11 +156,15 @@ def graph_pool_bytes():
     return sum(int(seg["total_size"]) for seg in _segments(None))
 
 
-def _release(entries, pools):
-    """Free ``entries``' graphs and their static outputs in ``pools``,
-    whoever still holds the entries, and hand the pools' free segments back
-    to the device.  Returns ``{pool: bytes the allocator still holds}``."""
-    torch.cuda.synchronize()  # no replay of these graphs still running
+def _release(entries, pools, card=None):
+    """Free ``entries``' graphs and their static outputs in ``pools`` (on
+    ``card``; every card: None), whoever still holds the entries, and hand
+    the pools' free segments back to the device.  Returns ``{pool: bytes
+    the allocator still holds}``."""
+    # No replay of these graphs still running.
+    for dev in ([card] if card is not None else
+                range(torch.cuda.device_count()) if torch.cuda.is_initialized() else []):
+        torch.cuda.synchronize(dev)
     ranges = [(seg["address"], seg["address"] + seg["total_size"]) for seg in _segments(pools)]
     for entry in entries:
         if entry.graph is None:
@@ -198,8 +217,8 @@ class StepGraphs:
     def __init__(self):
         self.lock = threading.Lock()
         self._entries = {}
-        self._pool = None  # the pool the next capture records into
-        self._given_up = set()  # pools given up whose segments were still held
+        self._pool = {}  # card -> the pool the next capture there records into
+        self._given_up = {}  # card -> pools given up whose segments were still held
         self._streams = {}
         self.fresh_pools = 0  # shared pools replaced by a signature's own
         self.alone_captures = 0  # signatures captured alone to measure their footprint
@@ -226,22 +245,27 @@ class StepGraphs:
 
     @property
     def pool(self):
-        """The pool the next capture records into (None before the first)."""
+        """The pool the next capture on the first card captured records
+        into (None before the first capture)."""
         with self.lock:
             TSAN.read("StepGraphs._pool", self)
-            return self._pool
+            return self._pool[min(self._pool, key=str)] if self._pool else None
 
-    def _pools(self):
-        pools = set(self._given_up)
-        if self._pool is not None:
-            pools.add(tuple(self._pool))
+    def _pools(self, device=None):
+        """The current and given-up pools of ``device`` (every card: None)."""
+        cards = list(self._pool.keys() | self._given_up.keys()) if device is None else [device]
+        pools = set()
+        for card in cards:
+            pools |= self._given_up.get(card, set())
+            if card in self._pool:
+                pools.add(tuple(self._pool[card]))
         return pools
 
-    def pool_bytes(self):
+    def pool_bytes(self, device=None):
         """The reserved bytes of the current pool and of every pool the
-        cache gave up that the allocator still holds (0 before the first
-        capture)."""
-        pools = self._pools()
+        cache gave up that the allocator still holds, on ``device`` (every
+        card: None; 0 before the first capture)."""
+        pools = self._pools(None if device is None else _device_key(device))
         return sum(int(seg["total_size"]) for seg in _segments(pools)) if pools else 0
 
     def last_pool_bytes(self):
@@ -260,8 +284,8 @@ class StepGraphs:
             TSAN.write("StepGraphs._pool", self)
             entries, pools = list(self._entries.values()), self._pools()
             self._entries = {}
-            self._pool = None
-            self._given_up = set()
+            self._pool = {}
+            self._given_up = {}
             self.fresh_pools = self.alone_captures = self.stranded_bytes = 0
             if pools:
                 _release(entries, pools)
@@ -284,7 +308,7 @@ class StepGraphs:
         with self.lock:
             TSAN.read("StepGraphs._entries", self)
             entry = self._entries.get(key)
-            if device.type != "cuda":
+            if device.type != "cuda" or not _capturable(statics):
                 missed = entry is None
                 if missed:
                     TSAN.write("StepGraphs._entries", self)
@@ -309,7 +333,7 @@ class StepGraphs:
             TSAN.read("StepGraphs._entries", self)
             if key in self._entries:
                 return None
-            if device.type != "cuda":
+            if device.type != "cuda" or not _capturable(statics):
                 entry = _CPU_MARKER
             else:
                 _, entry = self._capture(fn, arrays, statics, device)
@@ -330,11 +354,12 @@ class StepGraphs:
             # Outside the pool: allocated before the capture begins.
             static_in = [t.clone() if torch.is_tensor(t) else t for t in leaves]
         TSAN.write("StepGraphs._pool", self)
-        if self._pool is None:
+        card = _device_key(device)
+        if card not in self._pool:
             # lint: disable=LCK002 -- runs only inside run/prewarm's lock
-            self._pool = torch.cuda.graph_pool_handle()
-        entry = self._record(fn, static_in, in_spec, statics, device, self._pool)
-        others = [_footprint(e) for e in self._entries.values()]
+            self._pool[card] = torch.cuda.graph_pool_handle()
+        entry = self._record(fn, static_in, in_spec, statics, device, self._pool[card])
+        others = [_footprint(e) for (dev, _), e in self._entries.items() if dev == card]
         if _over_bound(entry.pool_bytes, others + [_footprint(entry)]):
             entry = self._bound(fn, static_in, in_spec, statics, device, entry, others)
         current.wait_stream(stream)
@@ -359,10 +384,10 @@ class StepGraphs:
                 # into the pool: end it, and give the pool up (the allocator
                 # refuses it from now on; its segments stay counted).
                 _end_allocating_to(device, pool)
-                self._given_up.add(tuple(pool))
-                if pool is self._pool:
-                    # lint: disable=LCK002 -- runs only inside run/prewarm's lock
-                    self._pool = None
+                card = _device_key(device)
+                self._given_up.setdefault(card, set()).add(tuple(pool))
+                if pool is self._pool.get(card):
+                    del self._pool[card]
                 raise
             capture_ms = (time.perf_counter() - t0) * 1e3
             nodes = instantiate_ms = None
@@ -390,27 +415,29 @@ class StepGraphs:
         self.alone_captures += 1
         shared = shared._replace(alone_bytes=alone.alone_bytes)
         if not _over_bound(shared.pool_bytes, others + [alone.alone_bytes]):
-            self._give_up([alone], {tuple(pool)})
+            self._give_up([alone], {tuple(pool)}, _device_key(device))
             return shared
         TSAN.write("StepGraphs._entries", self)
-        dropped, old = list(self._entries.values()) + [shared], self._pools()
-        self._entries.clear()
+        card = _device_key(device)
+        mine = [key for key in self._entries if key[0] == card]
+        dropped, old = [self._entries.pop(key) for key in mine] + [shared], self._pools(card)
         # lint: disable=LCK002 -- runs only inside run/prewarm's lock
-        self._pool = pool
+        self._pool[card] = pool
         # lint: disable=LCK002 -- runs only inside run/prewarm's lock
         self.fresh_pools += 1
-        self._give_up(dropped, old)
+        self._give_up(dropped, old, card)
         return alone
 
-    def _give_up(self, entries, pools):
-        """Release ``pools`` with ``entries``; a pool whose segments the
-        allocator still holds stays counted."""
-        held = _release(entries, pools)
+    def _give_up(self, entries, pools, card):
+        """Release ``pools`` (of ``card``) with ``entries``; a pool whose
+        segments the allocator still holds stays counted."""
+        held = _release(entries, pools, card)
+        given_up = self._given_up.setdefault(card, set())
         for pool, nbytes in held.items():
             if nbytes:
-                self._given_up.add(pool)
+                given_up.add(pool)
             else:
-                self._given_up.discard(pool)
+                given_up.discard(pool)
         # lint: disable=LCK002 -- runs only inside run/prewarm's lock
         self.stranded_bytes = sum(held.values())
 
@@ -433,6 +460,13 @@ class StepGraphs:
         current.wait_stream(stream)
         _record_stream(out, current)
         return out
+
+
+def _capturable(statics):
+    """Whether a round with these statics can be one CUDA graph: no mesh, or
+    a mesh of logical slots on one card."""
+    mesh = statics.get("mesh")
+    return mesh is None or mesh.one_device
 
 
 def _device_key(device):

@@ -10,6 +10,11 @@ jitters it by that dimension's bandwidth; every 4th candidate is uniform.
 so the parity tests can replay the reference's ``jax.random`` calls; the
 algorithms draw them from their ``torch.Generator`` with
 :func:`sample_tpe_draws`.
+
+``use_mesh=True`` rounds the pool up to a multiple of the mesh's slot count
+(as the reference does for its shards) and scores the KDE ratio of each
+slot's chunk on that slot; the pool is drawn and the top ``num`` picked on
+the algorithm's device.
 """
 
 from typing import NamedTuple
@@ -20,6 +25,8 @@ import torch
 from orion_tpu_torch.algo.base import BaseAlgorithm, algo_registry
 from orion_tpu_torch.algo.gp.acquisition import select_q
 from orion_tpu_torch.algo.sampling import clamp_objectives, reflect_unit
+from orion_tpu_torch.algo.sharding import mesh_health_fields, shard_candidates
+from orion_tpu_torch.parallel import device_mesh
 
 
 class TPEDraws(NamedTuple):
@@ -30,9 +37,13 @@ class TPEDraws(NamedTuple):
     uniform: torch.Tensor  # uniform rows of the exploration quarter
 
 
-def _pool_size(n_candidates, num):
+def _pool_size(n_candidates, num, mesh=None):
     # top-k needs k <= pool size: grow the pool to fit a large request.
-    return max(n_candidates, num)
+    m = max(n_candidates, num)
+    if mesh is not None:
+        # Equal chunks a slot: round the pool up to a multiple of the slots.
+        m = -(-m // mesh.size) * mesh.size
+    return m
 
 
 def sample_tpe_draws(generator, n_good, m, d, device):
@@ -98,9 +109,9 @@ def _log_kde_product(x, points, bandwidth, log_w=None):
     return total
 
 
-def _tpe_pool(draws, good, bad, bw_factor=1.0):
+def _tpe_pool(draws, good, bad, bw_factor=1.0, mesh=None):
     """The candidate pool ``(m, d)`` of ``draws`` and its (m,) scores
-    log l(x) - log g(x)."""
+    log l(x) - log g(x); with a ``mesh`` each slot scores its chunk."""
     m = draws.noise.shape[0]
     # bw_factor < 1 sharpens the good-set KDE below the 1-D Scott rate.
     bw_good = _bandwidth_1d(good) * bw_factor
@@ -109,39 +120,43 @@ def _tpe_pool(draws, good, bad, bw_factor=1.0):
     cands = reflect_unit(picked + draws.noise * bw_good[None, :])
     take_uniform = (torch.arange(m, device=good.device) % 4) == 3
     cands = torch.where(take_uniform[:, None], draws.uniform, cands)
-    score = _log_kde_product(cands, good, bw_good, log_w=log_w) - _log_kde_product(
-        cands, bad, _bandwidth_1d(bad)
-    )
-    return cands, score
+    bw_bad = _bandwidth_1d(bad)
+
+    def ratio(chunk, good, bad, bw_good, log_w, bw_bad):
+        return _log_kde_product(chunk, good, bw_good, log_w=log_w) - _log_kde_product(
+            chunk, bad, bw_bad)
+
+    if mesh is None:
+        return cands, ratio(cands, good, bad, bw_good, log_w, bw_bad)
+    pool = shard_candidates(cands, mesh)
+    return cands, pool.gather(pool.map(ratio, good, bad, bw_good, log_w, bw_bad))
 
 
-def _tpe_suggest(draws, good, bad, num, bw_factor=1.0):
+def _tpe_suggest(draws, good, bad, num, bw_factor=1.0, mesh=None):
     """The ``num`` best candidates of the pool (``m`` = the draws' rows) by
     l(x)/g(x), as (num, d) rows on the device of ``good``.  Ties in the
     score go to the lower index, as ``lax.top_k``."""
-    cands, score = _tpe_pool(draws, good, bad, bw_factor)
+    cands, score = _tpe_pool(draws, good, bad, bw_factor, mesh=mesh)
     return cands[select_q(score, num)]
 
 
-def tpe_round(generator, good, bad, n_candidates, num, bw_factor, device):
+def tpe_round(generator, good, bad, n_candidates, num, bw_factor, device, mesh=None):
     """One TPE suggestion batch from host ``good``/``bad`` arrays: upload,
     draw, score.  Shared by :class:`TPE` and ``bohb``."""
     good = torch.from_numpy(np.ascontiguousarray(good, dtype=np.float32)).to(device)
     bad = torch.from_numpy(np.ascontiguousarray(bad, dtype=np.float32)).to(device)
-    m = _pool_size(n_candidates, num)
+    m = _pool_size(n_candidates, num, mesh)
     draws = sample_tpe_draws(generator, good.shape[0], m, good.shape[1], device)
-    return _tpe_suggest(draws, good, bad, num, bw_factor=bw_factor)
+    return _tpe_suggest(draws, good, bad, num, bw_factor=bw_factor, mesh=mesh)
 
 
 @algo_registry.register("tpe")
 class TPE(BaseAlgorithm):
-    """``n_devices``/``use_mesh`` belong to the multi-device mesh, which is
-    not ported (``use_mesh=True`` raises)."""
+    """``use_mesh`` scores each round's pool over ``n_devices`` slots of
+    ``device`` (:func:`~orion_tpu_torch.algo.sharding.get_mesh`)."""
 
     def __init__(self, space, seed=None, n_init=20, gamma=0.25, n_candidates=1024,
                  bw_factor=1.0, n_devices=None, use_mesh=False, device=None):
-        if use_mesh:
-            raise NotImplementedError("orion_tpu_torch: the multi-device mesh is not ported yet")
         super().__init__(
             space, seed=seed, device=device, n_init=n_init, gamma=gamma,
             n_candidates=n_candidates, bw_factor=bw_factor
@@ -150,11 +165,14 @@ class TPE(BaseAlgorithm):
         self.gamma = gamma
         self.n_candidates = n_candidates
         self.bw_factor = float(bw_factor)
+        self.use_mesh = use_mesh
+        self._mesh = device_mesh(n_devices, device=self.device) if use_mesh else None
         self._x = np.zeros((0, space.n_cols), dtype=np.float32)
         self._y = np.zeros((0,), dtype=np.float32)
 
-    # The observation arrays are rebound on append, never mutated.
-    _share_by_ref = ("space", "_x", "_y")
+    # The observation arrays are rebound on append, never mutated; the mesh
+    # is a cached singleton.
+    _share_by_ref = ("space", "_mesh", "_x", "_y")
 
     def observe_arrays(self, cube, objectives, params_list=None, fidelities=None):
         objectives = clamp_objectives(objectives, self._y)
@@ -169,7 +187,14 @@ class TPE(BaseAlgorithm):
                               device=self.device)
         good, bad = good_bad_split(self._x, self._y, self.gamma)
         return tpe_round(self._generator, good, bad, self.n_candidates, num,
-                         self.bw_factor, self.device)
+                         self.bw_factor, self.device, mesh=self._mesh)
+
+    def health_record(self):
+        record = super().health_record()
+        if self._mesh is not None:
+            # The KDE path reports its slot count like the GP algorithms.
+            record = dict(record or {}, **mesh_health_fields(self._mesh))
+        return record
 
     def state_dict(self):
         out = super().state_dict()

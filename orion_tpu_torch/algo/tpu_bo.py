@@ -42,8 +42,13 @@ signature on a background thread before the history gets there.
 builds its tenants' plans through the same function and dispatches
 same-signature plans together.
 
-Not ported: the device mesh (``use_mesh=True`` raises
-``NotImplementedError``; ROADMAP queue A item 10).
+``use_mesh=True`` shards the round's candidate pool over a mesh of device
+slots (:mod:`orion_tpu_torch.algo.sharding`; ``mesh`` in the plan's statics
+and signature): the fit, pool generation and selection stay on the
+algorithm's device, each slot scores its chunk, and the rows are bitwise
+the unsharded round's.  A mesh of logical slots on one card is captured
+like any round; a mesh over distinct cards or processes runs eagerly
+(:mod:`orion_tpu_torch.algo.step_graphs`).
 """
 
 import time
@@ -76,12 +81,14 @@ from orion_tpu_torch.algo.prewarm import (
     plan_fused_step_bucket,
 )
 from orion_tpu_torch.algo.sampling import clamp_objectives, reflect_unit
+from orion_tpu_torch.algo.sharding import Placement, mesh_health_fields, shard_candidates
 from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
 from orion_tpu_torch.compiler_plane import (
     COMPILE_REGISTRY,
     fields_from_plan_signature,
     signature_fields,
 )
+from orion_tpu_torch.parallel import device_mesh
 from orion_tpu_torch.telemetry import TELEMETRY
 
 #: Random Fourier features of the Thompson acquisition.
@@ -345,14 +352,22 @@ def _dedup_fill_device(idx, ei_rank, q):
 def _suggest_step(draws, x, y, mask, best_x, warm_hypers, tr_length=None, *, q,
                   n_candidates, kernel, acq, fit_steps, local_frac, local_sigma, beta,
                   trust_region=False, tr_perturb_dims=20, y_transform="none",
-                  fixed_tail_cols=0):
+                  fixed_tail_cols=0, mesh=None):
     """The whole GP-BO suggest round, on the device of ``x``: returns the
     (q, d_free) rows and the fitted GPState with its health vector.
 
     ``y`` arrives raw; ``y_transform="copula"`` rank-Gaussianizes it inside
     the fit.  ``fixed_tail_cols``: the last k input columns are context,
     pinned to 1.0 when scoring; candidates and returned rows cover the
-    leading columns only.  No host sync happens in here."""
+    leading columns only.  No host sync happens in here.
+
+    ``mesh`` (:mod:`~orion_tpu_torch.algo.sharding`): the fit, the pool and
+    the polish run on the device of ``x`` as without it; the pool is then
+    split over the mesh's slots for the acquisition scores and the
+    posterior (``fused_gram`` launched once a slot), and only reductions
+    come back, so selection, dedup and the gather see what the unsharded
+    round sees.  ``joint_thompson`` (an (m, m) Cholesky of the whole pool)
+    stays on the device of ``x``."""
     x = x.to(torch.float32)
     y = y.to(torch.float32)
     mask = mask.to(torch.float32)
@@ -406,14 +421,16 @@ def _suggest_step(draws, x, y, mask, best_x, warm_hypers, tr_length=None, *, q,
         best = torch.min(torch.where(top, y_norm, inf))
     else:
         best = torch.min(torch.where(state.mask > 0, y_norm, inf))
+    # The pool the scores run over: contiguous chunks on the mesh's slots.
+    pool = candidates if mesh is None else shard_candidates(candidates, mesh)
     with record_function("suggest.acquire"):
         if acq == "joint_thompson":
             idx = joint_thompson(draws.acq, state, candidates, q, kind=kernel)
         else:
-            idx = acquire(draws.acq, state, candidates, q, kind=kernel, acq=acq, best=best,
+            idx = acquire(draws.acq, state, pool, q, kind=kernel, acq=acq, best=best,
                           beta=beta)
     with record_function("suggest.ei_rank"):
-        mean, std = posterior_norm(state, candidates, kind=kernel)
+        mean, std = posterior_norm(state, pool, kind=kernel)
         ei = expected_improvement(mean, std, best)
         ei_rank = select_q(ei, min(4 * q, n_candidates))
     with record_function("suggest.select"):
@@ -469,18 +486,23 @@ class FusedPlan(NamedTuple):
 
 def plan_statics(num_or_q, warm, *, n_candidates, kernel, acq, fit_steps,
                  refit_steps=None, local_frac, local_sigma, beta, trust_region=False,
-                 tr_perturb_dims=20, y_transform="none", fixed_tail_cols=0):
+                 tr_perturb_dims=20, y_transform="none", fixed_tail_cols=0, mesh=None):
     """The static keyword arguments of a round for ``num_or_q`` rows: the
     q bucket, and ``refit_steps`` in place of ``fit_steps`` on a warm refit
     when it is set.  :func:`make_fused_plan` and the prewarmer build their
-    signatures from this one function."""
+    signatures from this one function.  A ``mesh`` joins the statics (its
+    string, the fingerprint and slot layout, joins the signature); an
+    unsharded round's statics have no ``mesh`` key."""
     steps = refit_steps if warm and refit_steps is not None else fit_steps
-    return dict(
+    statics = dict(
         q=_next_pow2(num_or_q, floor=8), n_candidates=n_candidates, kernel=kernel,
         acq=acq, fit_steps=steps, local_frac=local_frac, local_sigma=local_sigma,
         beta=beta, trust_region=trust_region, tr_perturb_dims=tr_perturb_dims,
         y_transform=y_transform, fixed_tail_cols=fixed_tail_cols,
     )
+    if mesh is not None:
+        statics["mesh"] = mesh
+    return statics
 
 
 def plan_signature(shape, statics):
@@ -494,8 +516,9 @@ class _PlanPrep(NamedTuple):
     distinct (shape bucket, statics, device) so a steady round skips
     rebuilding it: the statics dict, the stringified signature, the cold
     start's hypers and the default tr_length, both already on the device.
-    (The reference's ``split_fit``/``host_fit_steps`` belong to the
-    multi-device mesh and wait for it, ROADMAP queue A item 10.)"""
+    (The reference's ``split_fit``/``host_fit_steps`` move the fit out of
+    its sharded jit; the port's sharded round fits on the lead slot inside
+    the same function, so it needs neither.)"""
 
     statics: dict
     signature: tuple
@@ -707,7 +730,8 @@ def start_bucket_prewarm(prewarmer, target_m, width, q_bucket, step_kw, *, devic
 def prewarm_suggest_step(m, width, statics, signature, *, device):
     """Capture the round for an ``(m, width)`` fit buffer from dummies:
     zeros for the history (every row masked out), the cold hypers and
-    draws of a throwaway generator.  Deliberately not through
+    draws of a throwaway generator (with a mesh in ``statics``, the sharded
+    round).  Deliberately not through
     :func:`run_fused_plan`: a prewarm never books a
     ``cuda_graph.recaptures`` sample (that counter reports the synchronous
     captures a suggest paid).  Returns the new entry, or None when the
@@ -730,6 +754,15 @@ def prewarm_suggest_step(m, width, statics, signature, *, device):
     return STEP_GRAPHS.prewarm(_suggest_step, signature, arrays, statics)
 
 
+def mesh_record(mesh):
+    """A mesh round's health fields: the slot count, and the byte placement
+    of the newest pool :func:`shard_candidates` laid on the mesh (recorded
+    when a round runs eagerly or is captured; a replay lays it out the
+    same way)."""
+    placed = mesh.last_placement
+    return mesh_health_fields(mesh, *(() if placed is None else (Placement(placed),)))
+
+
 @algo_registry.register("tpu_bo")
 class TPUBO(BaseAlgorithm):
     """Batched GP-BO on the card; the constructor takes the reference's
@@ -739,8 +772,10 @@ class TPUBO(BaseAlgorithm):
     ``prewarm`` captures the next pow-2 history bucket's round on a
     background thread before the history crosses into it, once the current
     bucket is ``prewarm_fill`` full (or one more batch of the size just
-    observed would cross it); ``n_devices`` and ``use_mesh`` belong to the
-    multi-device mesh, which is not ported (``use_mesh=True`` raises)."""
+    observed would cross it).  ``use_mesh`` shards each round's candidate
+    pool over ``n_devices`` slots of ``device``
+    (:func:`~orion_tpu_torch.algo.sharding.get_mesh`: distinct cards for
+    ``cuda``, logical slots for ``cuda:k`` or ``cpu``)."""
 
     supports_async_suggest = True
 
@@ -775,8 +810,6 @@ class TPUBO(BaseAlgorithm):
         use_mesh=False,
         device=None,
     ):
-        if use_mesh:
-            raise NotImplementedError("orion_tpu_torch: the multi-device mesh is not ported yet")
         super().__init__(
             space,
             seed=seed,
@@ -828,6 +861,8 @@ class TPUBO(BaseAlgorithm):
         self.speculation_safe = bool(speculative_suggest)
         self.prewarm = bool(prewarm)
         self.prewarm_fill = float(prewarm_fill)
+        self.use_mesh = use_mesh
+        self._mesh = device_mesh(n_devices, device=self.device) if use_mesh else None
         d = space.n_cols
         self._host = HostHistory(d)
         self._hist = DeviceHistory(d, device=self.device)
@@ -846,8 +881,9 @@ class TPUBO(BaseAlgorithm):
     # The fitted GP state is immutable-by-rebinding; `_hist` and `_host`
     # implement copy-on-write in their own __deepcopy__.  The prewarmer's
     # threads and lock cannot be copied, and the graphs it captures are
-    # process-wide: one warm covers every clone.
-    _share_by_ref = ("space", "_gp_state", "_prewarmer")
+    # process-wide: one warm covers every clone.  The mesh is a cached
+    # singleton: a clone's rounds must name the same object.
+    _share_by_ref = ("space", "_mesh", "_gp_state", "_prewarmer")
 
     @property
     def _x(self):
@@ -902,7 +938,7 @@ class TPUBO(BaseAlgorithm):
 
     # --- suggestion ---------------------------------------------------------
     def _step_kw(self):
-        return dict(
+        kw = dict(
             n_candidates=self.n_candidates,
             kernel=self.kernel,
             acq=self.acq,
@@ -916,6 +952,9 @@ class TPUBO(BaseAlgorithm):
             tr_perturb_dims=self.tr_perturb_dims,
             y_transform=self.y_transform,
         )
+        if self._mesh is not None:
+            kw["mesh"] = self._mesh
+        return kw
 
     def _maybe_prewarm(self, batch=0):
         maybe_prewarm_fused_step(self, batch=batch)
@@ -979,6 +1018,8 @@ class TPUBO(BaseAlgorithm):
         }
         if self._host.count:
             record["best_y"] = float(self._host.best_y)
+        if self._mesh is not None:
+            record.update(mesh_record(self._mesh))
         state = self._gp_state
         if state is not None and state.health is not None:
             record.update(unpack_device_health(state.health))

@@ -28,8 +28,11 @@ up with it; their meaning is the capture's:
   graphs copy only tensors into their static inputs), and a static that
   changes every round (``float(...)``/``.item()`` in the statics handed to
   the step graphs), which forks the step-graph signature every round.
-- ``JIT004`` — a ``DeviceMesh``/``init_device_mesh`` construction inside a
-  captured function or a declared hot-path function (``HOT_PATH_REGISTRY``).
+- ``JIT004`` — a device-mesh construction inside a captured function or a
+  declared hot-path function (``HOT_PATH_REGISTRY``): the port's own
+  ``Mesh(...)`` (``orion_tpu_torch.algo.sharding``; the cached
+  ``get_mesh``/``device_mesh`` are the way to name one) and
+  ``torch.distributed``'s ``DeviceMesh``/``init_device_mesh``.
 
 **What is captured.**  A capture records the whole call tree of what it
 runs, so the rules check the captured ROOTS and every function of the
@@ -77,7 +80,7 @@ _CACHE_FN, _CACHE_ARRAYS, _CACHE_STATICS = 0, 2, 3  # positions of fn, arrays, s
 #: Per-round dispatch surfaces that must not construct a device mesh per
 #: call even though they are not captured themselves (the reference's
 #: registry, less the stacked round's names, which the port dropped; the
-#: tenant-parallel branch arrives with multi-device support).
+#: port's tenant-parallel branch lives in ``run_coalesced_plans``).
 HOT_PATH_REGISTRY = frozenset({
     "_suggest_step",
     "_tenant_parallel_suggest_step",
@@ -86,7 +89,8 @@ HOT_PATH_REGISTRY = frozenset({
     "run_suggest_step_arrays",
     "run_coalesced_plans",
 })
-_MESH_CONSTRUCTORS = frozenset({"DeviceMesh", "init_device_mesh"})
+#: The port's mesh class (``get_mesh``'s uncached path) and torch's.
+_MESH_CONSTRUCTORS = frozenset({"Mesh", "DeviceMesh", "init_device_mesh"})
 
 #: Tensor methods that read the value to the host.
 _SYNC_METHODS = frozenset({"item", "tolist", "cpu", "numpy", "synchronize", "nonzero",
@@ -931,10 +935,11 @@ class MeshConstructionInHotPath(_CaptureRule):
     id = "JIT004"
     name = "mesh-construction-in-hot-path"
     description = (
-        "No per-call DeviceMesh(...)/init_device_mesh(...) inside a captured "
-        "function or a declared hot-path function (HOT_PATH_REGISTRY): a "
-        "mesh is a process-group handshake, never a per-round object — "
-        "build it once and pass it in."
+        "No per-call Mesh(...)/DeviceMesh(...)/init_device_mesh(...) inside "
+        "a captured function or a declared hot-path function "
+        "(HOT_PATH_REGISTRY): a mesh is named once per topology (the cached "
+        "get_mesh/device_mesh), never built per round — its identity keys "
+        "the round's graph signature."
     )
 
     def check(self, module):

@@ -9,9 +9,11 @@ DX001 reads the compiler plane's ``cuda_graph.recaptures`` where the
 reference reads ``jax.retraces``.  DX005, DX007 and DX008 read what the
 serve gateway and its fleet publish (``serve.queue_depth`` and the
 ``serve.backpressure`` counter; the ``serve.fleet.tenants.g<i>`` gauges;
-``serve.fleet.fenced_age_s``).  DX006 reads the ``use_mesh`` placement
-fields, which the port does not publish until the mesh (ROADMAP queue A
-item 10), so it stays silent on the port's own snapshots.
+``serve.fleet.fenced_age_s``).  DX006 reads the placement fields a
+``use_mesh`` algorithm adds to its health records (``mesh_devices``,
+``mesh_util_*_frac``: bytes per slot of the newest pool it sharded) and
+their ``serve_`` twins, which the gateway copies from the coalescer's
+tenant-parallel dispatch.
 """
 
 from orion_tpu_torch.diagnosis.engine import DoctorRule

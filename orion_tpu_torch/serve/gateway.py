@@ -60,7 +60,7 @@ from orion_tpu_torch.analysis.sanitizer import TSAN
 from orion_tpu_torch.core.producer import _advance_rng
 from orion_tpu_torch.device import resolve_device
 from orion_tpu_torch.health import FLIGHT
-from orion_tpu_torch.serve.coalesce import run_coalesced_plans
+from orion_tpu_torch.serve.coalesce import LAST_STACK_PLACEMENT, run_coalesced_plans
 from orion_tpu_torch.serve.fleet import (
     HANDOFF_TTL_S,
     FleetState,
@@ -1480,6 +1480,13 @@ class GatewayServer(socketserver.ThreadingTCPServer):
         health["serve_width"] = job.width
         health["serve_queue_depth"] = self._queue.qsize()
         health["serve_tenants"] = len(self._tenants)
+        # The coalescer's placement over a mesh (only after a mesh-mode
+        # dispatch: single-device serving keeps the record as it was).
+        if LAST_STACK_PLACEMENT:
+            health["serve_mesh_devices"] = LAST_STACK_PLACEMENT.get("devices")
+            if "util_min_frac" in LAST_STACK_PLACEMENT:
+                health["serve_mesh_util_min_frac"] = LAST_STACK_PLACEMENT["util_min_frac"]
+                health["serve_mesh_util_max_frac"] = LAST_STACK_PLACEMENT["util_max_frac"]
         return health
 
     # --- stats ----------------------------------------------------------------

@@ -11,6 +11,9 @@ import torch
 
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from orion_tpu_torch.algo import sharding
+from orion_tpu_torch.algo.sharding import Mesh, get_mesh
+
 
 def _score(state, candidates, *, kind):
     if kind == "matern52":  # a static: quiet
@@ -79,3 +82,11 @@ def host_side(x):
 def make_fused_plan(x):
     """A declared hot path, not captured: no mesh per call."""
     return init_device_mesh("cuda", (1,)), x  # expect: JIT004
+
+
+def run_coalesced_plans(plans):
+    """A declared hot path: the port's mesh class built per call is flagged,
+    the cached constructor is quiet."""
+    fresh = Mesh(["cuda:0"] * 4, ("candidates",), (4,))  # expect: JIT004
+    qualified = sharding.Mesh(["cpu"] * 2, ("tenants",), (2,))  # expect: JIT004
+    return fresh, qualified, get_mesh(4, device="cuda:0"), plans

@@ -317,12 +317,6 @@ def test_every_algorithm_runs_on_cpu_and_defaults_to_cuda(name):
         create_algo(space, config, seed=0)
 
 
-@pytest.mark.parametrize("name", ["tpu_bo", "tpe", "bohb", "asha_bo"])
-def test_mesh_is_not_ported(name):
-    with pytest.raises(NotImplementedError):
-        create_algo(_space_for(name), {name: {"use_mesh": True}}, device="cpu")
-
-
 # --- reference state restored into the port -------------------------------------
 
 

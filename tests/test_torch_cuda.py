@@ -1185,3 +1185,200 @@ def test_serve_hunt_worker_never_initializes_cuda(cuda, tmp_path):
     assert max(apps, default=0) <= len(apps_before)
     [tenant] = stats["per_tenant"].values()
     assert tenant["n_observed"] >= 24 and stats["dispatches"] >= 4
+
+
+# --- the multi-device mesh --------------------------------------------------------
+
+
+def _mesh_bits(state):
+    from torch.utils import _pytree as pytree
+
+    return [leaf.view(torch.int32) if leaf.dtype == torch.float32 else leaf
+            for leaf in pytree.tree_leaves(state) if torch.is_tensor(leaf)]
+
+
+def _same_state(got, want):
+    return all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(_mesh_bits(got), _mesh_bits(want)))
+
+
+def _mesh_config(n_devices):
+    return {"tpu_bo": dict(MAIN_ALGO["tpu_bo"], use_mesh=True, n_devices=n_devices)}
+
+
+def _needs_cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards")
+
+
+@pytest.mark.cuda
+def test_four_logical_slots_round_is_the_unsharded_round(cuda, monkeypatch):
+    """The main path's round on 4 logical slots of one card (``cuda:0``)
+    against no mesh: the capture round and a replay give the same rows and
+    fit bitwise and the health within rtol 1e-6; the replayed sharded
+    round launches ``fused_gram`` once a slot at 4096 x 256 x 6, and the
+    placement is a quarter a slot."""
+    card = torch.device("cuda", 0)
+    shapes = []
+    plan = gram._launch_plan
+    monkeypatch.setattr(gram, "_launch_plan",
+                        lambda m, n, d, aligned: shapes.append((m, n, d)) or plan(m, n, d, aligned))
+    meshed = _main_path_algo(card, seed=5, config=_mesh_config(4))
+    plain = _main_path_algo(card, seed=5)
+    for replay in (False, True):
+        del shapes[:]
+        before = gram.fused_gram.launches
+        rows = meshed.suggest_batch(1024).cube
+        torch.cuda.synchronize()
+        if replay:
+            assert gram.fused_gram.launches - before == 4
+            assert shapes == [(4096, 256, 6)] * 4
+        want = plain.suggest_batch(1024).cube
+        assert (rows == want).all()
+        for a, b in zip([meshed._gp_state.chol, meshed._gp_state.alpha, *meshed._gp_state.hypers],
+                        [plain._gp_state.chol, plain._gp_state.alpha, *plain._gp_state.hypers]):
+            assert torch.equal(a, b)
+        torch.testing.assert_close(meshed._gp_state.health, plain._gp_state.health,
+                                   rtol=1e-6, atol=0)
+        for algo in (meshed, plain):
+            algo.observe_arrays(rows[:16], rows[:16, 0])
+    record = meshed.health_record()
+    assert (record["mesh_devices"], record["mesh_util_min_frac"],
+            record["mesh_util_max_frac"]) == (4, 0.25, 0.25)
+
+
+@pytest.mark.cuda
+def test_tenant_parallel_lanes_on_logical_slots_are_their_rounds_alone(cuda):
+    """Four sharded tenants coalesced over 4 logical slots (tenant-parallel:
+    each lane unsharded on its slot) against each tenant's sharded round
+    alone: rows and GPState bitwise, one launch a lane."""
+    import copy
+
+    from orion_tpu_torch.algo.tpu_bo import run_fused_plan
+    from orion_tpu_torch.serve.coalesce import LAST_STACK_PLACEMENT, run_coalesced_plans
+
+    card = torch.device("cuda", 0)
+    tenants = [_main_path_algo(card, seed=30 + i, config=_mesh_config(4)) for i in range(4)]
+    twins = [copy.deepcopy(t) for t in tenants]
+    alone = [run_fused_plan(t.fused_step_plan(1024)) for t in twins]
+    before = gram.fused_gram.launches
+    coalesced = run_coalesced_plans([t.fused_step_plan(1024) for t in tenants])
+    torch.cuda.synchronize()
+    assert gram.fused_gram.launches - before == 4
+    assert LAST_STACK_PLACEMENT["tenant_parallel"] is True
+    for (rows, state), (want_rows, want_state) in zip(coalesced, alone):
+        assert torch.equal(rows, want_rows) and _same_state(state, want_state)
+
+
+@pytest.mark.cuda
+def test_mesh_over_distinct_cards_is_the_unsharded_round(cuda):
+    """``device="cuda"`` with ``n_devices=2``: the pool's chunks on two
+    cards, scored there against copies of the state, the reductions back
+    on ``cuda:0``; the round runs eagerly (no graph) and equals the
+    unsharded round's rows and fit."""
+    _needs_cards(2)
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+
+    meshed = _main_path_algo(cuda, seed=6, config=_mesh_config(2))
+    plain = _main_path_algo(cuda, seed=6)
+    assert meshed._mesh.slots == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert not meshed._mesh.one_device
+    for _ in range(2):
+        rows = meshed.suggest_batch(1024).cube
+        assert (rows == plain.suggest_batch(1024).cube).all()
+        for a, b in zip(meshed._gp_state.hypers, plain._gp_state.hypers):
+            assert torch.equal(a, b)
+        for algo in (meshed, plain):
+            algo.observe_arrays(rows[:16], rows[:16, 0])
+    entries = [e for _dev, sig, e in STEP_GRAPHS.entries() if "mesh" in dict(sig[1])
+               and "cuda:0,cuda:1" in dict(sig[1])["mesh"]]
+    assert entries and all(e.graph is None for e in entries)
+    assert meshed.health_record()["mesh_util_max_frac"] == 0.5
+
+
+@pytest.mark.cuda
+def test_tenant_parallel_lanes_over_distinct_cards(cuda):
+    """Four tenants sharded over two cards, coalesced: lanes 1 and 3 run on
+    ``cuda:1`` in that card's own graph pool, and every tenant gets its
+    round alone back on ``cuda:0``, bitwise."""
+    _needs_cards(2)
+    import copy
+
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+    from orion_tpu_torch.algo.tpu_bo import run_fused_plan
+    from orion_tpu_torch.serve.coalesce import run_coalesced_plans
+
+    tenants = [_main_path_algo(cuda, seed=40 + i, config=_mesh_config(2)) for i in range(4)]
+    twins = [copy.deepcopy(t) for t in tenants]
+    alone = [run_fused_plan(t.fused_step_plan(1024)) for t in twins]
+    coalesced = run_coalesced_plans([t.fused_step_plan(1024) for t in tenants])
+    for (rows, state), (want_rows, want_state) in zip(coalesced, alone):
+        assert rows.device == torch.device("cuda", 0)
+        assert torch.equal(rows, want_rows) and _same_state(state, want_state)
+    assert STEP_GRAPHS.pool_bytes("cuda:1") > 0
+    assert STEP_GRAPHS.pool_bytes() == STEP_GRAPHS.pool_bytes("cuda:0") + \
+        STEP_GRAPHS.pool_bytes("cuda:1")
+
+
+_NCCL_RANK = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from orion_tpu_torch.algo import sharding
+from orion_tpu_torch.parallel import device_mesh, init_distributed, shard_candidates
+
+rank, port = int(sys.argv[1]), sys.argv[2]
+init_distributed(coordinator=f"localhost:{port}", num_processes=2, process_id=rank,
+                 local_device_ids=[rank])
+mesh = device_mesh()
+rows = np.zeros((8, 2), np.float32)
+for r in range(4 * rank, 4 * rank + 4):
+    rows[r] = 1 + r
+card = torch.device("cuda", rank)
+full = sharding.gather_candidates(shard_candidates(torch.from_numpy(rows).to(card), mesh))
+print("PSUM", float(full.sum()), flush=True)
+from orion_tpu_torch.algo.base import create_algo
+from orion_tpu_torch.space.dsl import build_space
+space = build_space({f"x{i}": "uniform(0, 1)" for i in range(3)})
+algo = create_algo(space, {"tpu_bo": {"n_init": 4, "n_candidates": 256, "fit_steps": 5,
+                                      "use_mesh": True}}, seed=0, device=card)
+x = np.random.default_rng(0).uniform(size=(8, 3))
+algo.observe([{f"x{i}": float(v) for i, v in enumerate(r)} for r in x],
+             [{"objective": float(v)} for v in np.random.default_rng(0).normal(size=8)])
+print("RESULT", json.dumps([[p[k] for k in sorted(p)] for p in algo.suggest(4)]), flush=True)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_nccl_cohort_of_two_cards(cuda):
+    """Two processes, one card each, on ``nccl``: a cross-rank gather sums
+    to 72.0 in both, and ``tpu_bo`` with the cohort's mesh suggests the same
+    rows in both."""
+    _needs_cards(2)
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, "-c", _NCCL_RANK, str(rank), str(port)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for rank in (0, 1)]
+    try:
+        results = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    lines = []
+    for p, (out, err) in zip(procs, results):
+        assert p.returncode == 0, err[-3000:]
+        lines.append({ln.split(" ", 1)[0]: ln.split(" ", 1)[1] for ln in out.splitlines()
+                      if ln.startswith(("PSUM", "RESULT"))})
+    assert float(lines[0]["PSUM"]) == float(lines[1]["PSUM"]) == 72.0
+    assert lines[0]["RESULT"] == lines[1]["RESULT"]

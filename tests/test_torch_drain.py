@@ -205,13 +205,13 @@ def test_refusals_match_the_reference(plane):
     assert all(m[0] != stray_id for m in rows[0])
 
 
-def _colliding(package, specs, index, rows):
+def _colliding(package, specs, index, exp_id):
     db = router(package, specs)
     try:
         drainer = DRAINERS[package].Drainer(db, index, fence_grace=0)
         plan = drainer.plan()
         drainer.run(plan)
-        move = plan.moves[0]
+        move = next(m for m in plan.moves if m.exp_id == exp_id)
         conns = dict(db.shard_connections())
         return (sorted(dumps_canonical({k: v for k, v in d.items() if k != "_id"})
                        for d in conns[move.dst_index].read(
@@ -228,9 +228,12 @@ def test_colliding_auto_id_telemetry_moves_by_content_like_the_reference(plane):
     gives them fresh ids), losing and duplicating none."""
     started, specs, index, _saved = plane
     db = router("port", specs)
-    move = Drainer(db, index, fence_grace=0).plan().moves[0]
     conns = dict(db.shard_connections())
-    resident = next(d["_id"] for d in conns[move.dst_index].read("experiments", {}))
+    # A move whose destination already holds an experiment (ports are
+    # random, so the first move's destination may hold none).
+    move, resident = next(
+        (m, docs[0]["_id"]) for m in Drainer(db, index, fence_grace=0).plan().moves
+        for docs in [conns[m.dst_index].read("experiments", {})] if docs)
     rows = [{"experiment": move.exp_id, "op": "suggest", "duration": 0.25 * (i + 1),
              "count": i + 1, "time": 100.0 + i} for i in range(3)]
     for row in rows:
@@ -241,7 +244,7 @@ def test_colliding_auto_id_telemetry_moves_by_content_like_the_reference(plane):
                                                   "time": 200.0 + i})
     db.close()
     want, got, ref_out, port_out = both(started, save(started),
-                                        lambda p: _colliding(p, specs, index, rows))
+                                        lambda p: _colliding(p, specs, index, move.exp_id))
     assert port_out == ref_out and got == want
     moved, left = port_out
     expected = sorted(dumps_canonical(row) for row in rows)

@@ -58,8 +58,8 @@ def test_entry_points_default_to_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         create_algo(build_space(PRIORS), CONFIG, seed=0)
-    with pytest.raises(NotImplementedError):
-        tbo.TPUBO(build_space(PRIORS), device="cpu", use_mesh=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbo.TPUBO(build_space(PRIORS), use_mesh=True)
 
 
 def test_building_blocks_default_to_cuda():

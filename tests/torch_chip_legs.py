@@ -6,6 +6,13 @@ and at its depth after it (``hunt``'s two backends, ``cli``'s one worker,
 ``evc``, ``network`` (a) and (b), ``serve`` (b)): one JSON line a leg and
 depth, with its seconds.
 
+``drain`` runs ``chip_smoke.py``'s ``day2`` phase (on a fresh ``network``
+(b) plane) twice: as the script runs it, and with the live drain's workers
+started 40 s after the drain (``DAY2_WORKERS_LATE_S``), as on a host whose
+first GP round registers that much later; one JSON line each with the
+phase's seconds and the live drain's timeline (drain window, the gates,
+the GP round's registration, the fence, trials ended in and after it).
+
 ``mix`` runs the main path's ``tpu_bo`` through an ``ExperimentClient`` on
 memory storage whose q bucket changes from round to round, as a hunt's does
 when its workers ask for different batch sizes: one JSON line with each
@@ -15,6 +22,7 @@ entry points, so another checkout of the package can run it too, to compare
 two versions on one card in one call::
 
     python3 tests/torch_chip_legs.py legs
+    python3 tests/torch_chip_legs.py drain
     PYTHONPATH=. python3 tests/torch_chip_legs.py mix --label change
     PYTHONPATH=<other checkout> python3 tests/torch_chip_legs.py mix --label parent
 """
@@ -147,15 +155,48 @@ def legs():
                 gateway.kill()
 
 
+def drain(lates=(0.0, 40.0)):
+    sys.path.append(ROOT)
+    import chip_smoke as cs
+    import orion_tpu_torch.device  # noqa: F401  (precision switches)
+
+    device = torch.device("cuda")
+    cs.phase_build()
+    print(json.dumps({"smi": _smi()}), flush=True)
+    lines = []
+    real_emit = cs.emit
+    cs.emit = lambda phase, **fields: lines.append(fields) or real_emit(phase, **fields)
+    try:
+        for late in lates:
+            cs.DAY2_WORKERS_LATE_S = late
+            with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+                plane, _admin = cs.run_network_shards(tmp, device)
+                del lines[:]
+                t0 = time.perf_counter()
+                cs.phase_day2(device, tmp, plane.pop("plane"))
+                seconds = time.perf_counter() - t0
+            run = next(line for line in lines if line.get("run") == "drain")
+            keys = ("drain_window_s", "migrator_started_s", "gates_opened_s",
+                    "gp_round_registered_s", "fence_window_ms", "trials_ended_before_fence",
+                    "trials_ended_in_fence", "trials_ended_after_flip", "workers_wall_s")
+            print(json.dumps({"leg": "day2", "workers_late_s": late, "seconds": seconds,
+                              **{k: run[k] for k in keys}}), flush=True)
+    finally:
+        cs.emit = real_emit
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("legs", "mix"))
+    parser.add_argument("what", choices=("legs", "mix", "drain"))
     parser.add_argument("--label", default="this checkout")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_chip_legs: no CUDA device", file=sys.stderr)
         return 1
-    legs() if args.what == "legs" else mix(args.label)
+    if args.what == "mix":
+        mix(args.label)
+    else:
+        (legs if args.what == "legs" else drain)()
     return 0
 
 
