@@ -31,7 +31,8 @@ non-zero; nothing is caught and passed over):
 6. ``regret``: the regret gate's scenario (``BENCH_REGRET_BASELINE.json``)
    through the port, seeds 0-4, judged by the port's copy of the gate.
 7. ``algorithms``: every other algorithm of the registry on the card, each
-   at its benchmark preset (``ALGO_RUNS``), in a plain loop of
+   at its benchmark preset (``algo_runs()``, read from the port's
+   ``benchmarks.runner.PRESETS``), in a plain loop of
    ``suggest(batch)``, host evaluation and ``observe`` until the trial
    budget or ``is_done``; one JSON line per run with its trials, rounds,
    wall time, median suggest ms, suggestions/s and final simple regret
@@ -266,7 +267,22 @@ non-zero; nothing is caught and passed over):
    (d), firing on the same record with its placement collapsed onto one
    slot.  Logical slots measure the code path, not a speed-up from more
    cards.
-19. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+19. ``benchmarks``: the benchmark library (``orion_tpu_torch/benchmarks``)
+   on the card.  (a) ``gram_bench.run_gram_bench`` at its 7 shapes, both
+   kinds: the plain path (``kernel_matrix``) against ``fused_gram`` with
+   CUDA-graph event times (the harness the kernel checks use), every row
+   within 1e-5 * max(1, amplitude), each row's kernel ms, plain ms, speedup
+   and share of the card's bound.  (b) ``suggest_bench.run_suggest_bench``
+   at its 3 shapes, ``fused_gram``'s launches and their (m, n, d) counted
+   over each: at least one a timed round at the shape's cross-gram; device,
+   wall, host and public-API ms, FLOPs (a lower bound), the pool footprint,
+   and ``hartmann6-q1024``'s device ms beside the main path's replayed
+   round.  (c) ``runner.main`` over ``BENCH_PRESETS`` at their full
+   budgets, each line's regret beside the reference's median from
+   ``BENCH_SEEDS.json``; ``thompson-rosenbrock20`` launches ``fused_gram``.
+   (d) ``host_profile.main`` on ``asha-ackley50`` at 512 trials: the result
+   and a non-empty tottime table.
+20. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -275,6 +291,7 @@ Without a CUDA device it exits with code 1 before printing any result.
 import bisect
 import collections
 import contextlib
+import io
 import json
 import multiprocessing
 import os
@@ -293,11 +310,6 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-#: H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and float32
-#: rate outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
 
 #: fused_gram shapes (m, n, d): the main path's first, then one for each
 #: path of the kernel's launch plan and the edges: n odd (scalar stores), a
@@ -365,73 +377,8 @@ def phase_build():
     emit("build", seconds=seconds, sources=sources, cached=cached, ptxas=ptxas)
 
 
-def _graph_ms(fn, calls=20, reps=15):
-    """Median device ms of one ``fn()`` call: ``calls`` calls captured in a
-    CUDA graph (no host launch overhead), each output kept alive so every
-    call writes fresh memory (no L2 reuse), timed by CUDA events over
-    ``reps`` replays after a warm-up."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    # lint: disable=PERF003 -- the kernel checks' timing harness captures the
-    # kernel's calls to time them without launch overhead; no round runs it.
-    graph = torch.cuda.CUDAGraph()
-    keep = []
-    # lint: disable=PERF003 -- the same timing harness's capture.
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            keep.append(fn())
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    del graph, keep
-    return statistics.median(times)
-
-
-def _eager_ms(fn, reps=30):
-    """Median CUDA-event ms of one eager call (host launch cost included)."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def gram_bytes(m, n, d):
-    """Bytes ``fused_gram`` must move: each input read once, the output
-    written once."""
-    return 4 * (m * d + n * d + d + 1 + m * n)
-
-
-def gram_bound(m, n, d):
-    """Least time for ``fused_gram`` on an H100: its bytes at 3.35 TB/s,
-    against its float32 operations (2d for the cross term, 2 per norm, ~20
-    for the epilogue) at 67 TFLOP/s."""
-    nbytes = gram_bytes(m, n, d)
-    flops = m * n * (2 * d + 4 + 20)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 def check_fused_gram(device):
+    from orion_tpu_torch.benchmarks.gram_bench import eager_ms, gram_bound, gram_bytes, graph_ms
     from orion_tpu_torch.ops.gram import fused_gram, fused_gram_reference
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -450,15 +397,15 @@ def check_fused_gram(device):
             if not err <= limit:
                 raise AssertionError(f"fused_gram {kind} {(m, n, d)}: max_abs_err {err} > {limit}")
             bound_ms, bound_by = gram_bound(m, n, d)
-            kernel_ms = _graph_ms(lambda: fused_gram(xa, xb, ils, amp, kind=kind))
+            kernel_ms = graph_ms(lambda: fused_gram(xa, xb, ils, amp, kind=kind))
             cases.append({
                 "m": m, "n": n, "d": d, "kind": kind, "max_abs_err": err, "tolerance": limit,
                 "ms": kernel_ms, "kernel_ms": kernel_ms,
                 "gbytes_per_s": gram_bytes(m, n, d) / (kernel_ms * 1e-3) / 1e9,
                 "bound_share": bound_ms / kernel_ms,
-                "fill_ms": _graph_ms(lambda: torch.empty((m, n), device=device).fill_(1.0)),
-                "plain_ms": _graph_ms(lambda: fused_gram_reference(xa, xb, ils, amp, kind=kind)),
-                "eager_ms": _eager_ms(lambda: fused_gram(xa, xb, ils, amp, kind=kind)),
+                "fill_ms": graph_ms(lambda: torch.empty((m, n), device=device).fill_(1.0)),
+                "plain_ms": graph_ms(lambda: fused_gram_reference(xa, xb, ils, amp, kind=kind)),
+                "eager_ms": eager_ms(lambda: fused_gram(xa, xb, ils, amp, kind=kind)),
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             })
     emit("kernel_checks", kernel="fused_gram", cases=cases)
@@ -541,7 +488,7 @@ def phase_main_path(device, q=Q, rounds=ROUNDS, **overrides):
 
 
 def profile_round(round_fn, device, check_stages=True):
-    """One call of ``round_fn`` under ``torch.profiler``: kernels launched,
+    """One call of ``round_fn`` under the profiler: kernels launched,
     the device's busy time (the union of its kernel intervals) against the
     call's wall time, each ``suggest.*`` stage's host and device ms (the
     ``record_function`` spans of the algorithms' suggest paths and
@@ -551,17 +498,20 @@ def profile_round(round_fn, device, check_stages=True):
     round: a CUDA graph runs no Python, so it has no ``suggest.*`` span but
     the draws'."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd.profiler import profile
 
     from orion_tpu_torch.ops.gram import PROFILE_RANGE
 
     _sync(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # The kineto profiler torch.profiler wraps, as hunt --profile drives it
+    # (compiler_plane.profiler_capture): the wrapper imports torch._inductor.
+    card = "cuda" if torch.device(device).type == "cuda" else None
+    with profile(use_device=card, use_kineto=True) as prof:
         t0 = time.perf_counter()
         round_fn()
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
+    events = prof.function_events
     # Device-side copies of the spans (and of ``fused_gram``'s launch range)
     # cover the gaps between their kernels: leave them out of the busy time.
     kernels = sorted((e.time_range.start, e.time_range.end) for e in events
@@ -682,35 +632,42 @@ def phase_regret(device):
         raise AssertionError("regret gate failed against BENCH_REGRET_BASELINE.json")
 
 
-def _uniform_priors(n_dims):
-    return {f"x{i:02d}": "uniform(0, 1)" for i in range(n_dims)}
+def _preset_run(name, seeds=(0,)):
+    """The ``algorithms`` row of the port's benchmark preset ``name``
+    (``orion_tpu_torch.benchmarks.runner.PRESETS``)."""
+    from orion_tpu_torch.benchmarks.runner import PRESETS
+
+    preset = PRESETS[name]
+    algorithm = preset["algorithm"]
+    if not isinstance(algorithm, dict):
+        algorithm = {algorithm: {}}
+    return (name, preset["priors"], preset["fn"], algorithm, preset["max_trials"],
+            preset["batch_size"], seeds)
 
 
-ACKLEY50 = {**_uniform_priors(50), "budget": "fidelity(1, 256, 4)"}
-ASHA_BO = {"n_init": 128, "n_candidates": 8192, "fit_steps": 30, "refit_steps": 10,
-           "local_frac": 0.8, "trust_region": True, "y_transform": "copula",
-           "tr_perturb_dims": 12, "num_brackets": 3}
+def algo_runs():
+    """The ``algorithms`` phase: (run, priors, function, algorithm config,
+    trials, batch, seeds).  A run named like a benchmark preset is that
+    preset and reads its reference regret from ``BENCH_SEEDS.json``;
+    ``grid-branin``, ``tpe-hartmann6`` and ``hyperband-ackley50`` have no
+    preset and keep their own rows."""
+    from orion_tpu_torch.benchmarks.runner import _ackley50_priors, _uniform_priors
 
-#: The ``algorithms`` phase: (run, priors, function, algorithm config,
-#: trials, batch, seeds).  The configs are the reference's benchmark
-#: presets (``orion_tpu/benchmarks/runner.py``) where it has one; a run
-#: named like a preset reads that preset's reference regret from
-#: ``BENCH_SEEDS.json``.
-ALGO_RUNS = [
-    ("random-branin", _uniform_priors(2), "branin", {"random": {}}, 200, 50, (0,)),
-    ("grid-branin", _uniform_priors(2), "branin", {"grid_search": {"n_values": 14}}, 200, 50,
-     (0,)),
-    ("tpe-hartmann6", _uniform_priors(6), "hartmann6", {"tpe": {}}, 192, 16, (0,)),
-    ("cmaes-rosenbrock20", _uniform_priors(20), "rosenbrock20", {"cmaes": {"popsize": 16}},
-     1024, 16, (0,)),
-    ("de-rosenbrock20", _uniform_priors(20), "rosenbrock20",
-     {"de": {"popsize": 32, "mutation": "best1"}}, 1024, 32, (0,)),
-    ("asha-ackley50", ACKLEY50, "ackley50", {"asha": {"num_brackets": 3}}, 4096, 512, (0,)),
-    ("hyperband-ackley50", ACKLEY50, "ackley50", {"hyperband": {}}, 4096, 512, (0,)),
-    ("bohb-ackley50", ACKLEY50, "ackley50", {"bohb": {"n_candidates": 8192, "min_points": 64}},
-     4096, 512, (0,)),
-    ("asha_bo-ackley50", ACKLEY50, "ackley50", {"asha_bo": ASHA_BO}, 4096, 512, (0, 1)),
-]
+    return [
+        _preset_run("random-branin"),
+        ("grid-branin", _uniform_priors(2), "branin", {"grid_search": {"n_values": 14}}, 200,
+         50, (0,)),
+        ("tpe-hartmann6", _uniform_priors(6), "hartmann6", {"tpe": {}}, 192, 16, (0,)),
+        _preset_run("cmaes-rosenbrock20"),
+        _preset_run("de-rosenbrock20"),
+        _preset_run("asha-ackley50"),
+        ("hyperband-ackley50", _ackley50_priors(), "ackley50", {"hyperband": {}}, 4096, 512,
+         (0,)),
+        _preset_run("bohb-ackley50"),
+        _preset_run("asha_bo-ackley50", seeds=(0, 1)),
+    ]
+
+
 #: Each asha_bo-ackley50 seed must end below this regret: plain ASHA sits at
 #: 20.35-20.70 on this preset, the reference asha_bo's worst of 15 seeds at
 #: 18.93 (``BENCH_SEEDS.json``).
@@ -775,18 +732,19 @@ def run_algorithm(device, priors, fn_name, config, max_trials, batch, seed):
                   "is_done": bool(algo.is_done)}
 
 
-def phase_algorithms(device, runs=ALGO_RUNS):
-    """Every run of ``runs``; returns ``fused_gram``'s launches over the
-    asha_bo runs (zeroed just before each, read just after).  After the
-    first asha_bo run, one more model round of 512 fresh points runs under
-    the profiler (:func:`profile_round`)."""
+def phase_algorithms(device, runs=None):
+    """Every run of ``runs`` (default :func:`algo_runs`); returns
+    ``fused_gram``'s launches over the asha_bo runs (zeroed just before
+    each, read just after).  After the first asha_bo run, one more model
+    round of 512 fresh points runs under the profiler
+    (:func:`profile_round`)."""
     from orion_tpu_torch.ops import gram
 
     plan = gram._launch_plan(*ASHA_BO_SHAPE, True)
     if plan.resident:
         raise AssertionError(f"{ASHA_BO_SHAPE} is expected on the chunked path: {plan}")
     asha_bo_launches = 0
-    for name, priors, fn_name, config, max_trials, batch, seeds in runs:
+    for name, priors, fn_name, config, max_trials, batch, seeds in runs or algo_runs():
         reference = _reference_regret(name)
         for seed in seeds:
             gram.fused_gram.launches = 0
@@ -1312,6 +1270,40 @@ def run_cli_hunt(tmp, device, q=CLI_Q, max_trials=CLI_TRIALS, algo=CLI_ALGO,
     }
 
 
+#: The traces ``read_traces`` read and the seconds it spent, over the run.
+TRACE_READS = {"traces": 0, "seconds": 0.0}
+#: The fields of a Chrome trace's complete event, in the order the profiler
+#: writes them, for the two categories the trace checks read.
+_TRACE_EVENT = re.compile(
+    r'"cat": "(kernel|user_annotation)",\s*"name": "((?:[^"\\]|\\.)*)",\s*"pid": [^,]*,'
+    r'\s*"tid": [^,]*,\s*"ts": ([-0-9.e+]+),\s*"dur": ([-0-9.e+]+)')
+_TRACE_CATEGORIES = ("kernel", "user_annotation")
+
+
+def json_trace_events(text):
+    """``(cat, name, ts, dur)`` of every kernel and user_annotation event of
+    a Chrome trace, by parsing the whole JSON."""
+    return [(e["cat"], e["name"], e["ts"], e["dur"]) for e in json.loads(text)["traceEvents"]
+            if e.get("cat") in _TRACE_CATEGORIES]
+
+
+def trace_events(path):
+    """:func:`json_trace_events` of the trace at ``path``, found by a scan
+    for those two categories: a worker's trace holds ~100,000 events a GP
+    round, tens of MB, and the kernels and ranges are a tenth of them.  The
+    scan is held to the number of times each category occurs in the text;
+    where they differ (another writer's field order), the whole JSON is
+    parsed instead."""
+    with open(path) as handle:
+        text = handle.read()
+    events = [(cat, json.loads(f'"{name}"') if "\\" in name else name, float(ts), float(dur))
+              for cat, name, ts, dur in _TRACE_EVENT.findall(text)]
+    found = collections.Counter(event[0] for event in events)
+    if all(found[cat] == text.count(f'"cat": "{cat}"') for cat in _TRACE_CATEGORIES):
+        return events
+    return json_trace_events(text)
+
+
 def read_worker_trace(path):
     """From one ``hunt --profile`` trace: the ``gram.cu`` kernel's launches
     and the (m, n, d) of each, read from the profiler range the wrapper
@@ -1321,28 +1313,25 @@ def read_worker_trace(path):
     span).  Raises unless every kernel launch has its range."""
     from orion_tpu_torch.ops.gram import PROFILE_RANGE
 
-    with open(path) as handle:
-        events = json.load(handle)["traceEvents"]
-    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                     if e.get("cat") == "kernel")
-    gram_launches = sum(1 for e in events
-                        if e.get("cat") == "kernel" and GRAM_KERNEL in e.get("name", ""))
+    events = trace_events(path)
+    kernels = sorted((ts, ts + dur) for cat, _name, ts, dur in events if cat == "kernel")
+    gram_launches = sum(1 for cat, name, _ts, _dur in events
+                        if cat == "kernel" and GRAM_KERNEL in name)
     shapes = collections.Counter(
-        e["name"][len(PROFILE_RANGE) + 1:] for e in events
-        if e.get("cat") == "user_annotation"
-        and e.get("name", "").startswith(PROFILE_RANGE + " "))
+        name[len(PROFILE_RANGE) + 1:] for cat, name, _ts, _dur in events
+        if cat == "user_annotation" and name.startswith(PROFILE_RANGE + " "))
     if sum(shapes.values()) != gram_launches:
         raise AssertionError(f"{path}: {gram_launches} {GRAM_KERNEL} launches, "
                              f"{sum(shapes.values())} {PROFILE_RANGE} ranges {dict(shapes)}")
-    loops = [e for e in events
-             if e.get("name") == "hunt.workon" and e.get("cat") == "user_annotation"]
+    loops = [dur for cat, name, _ts, dur in events
+             if cat == "user_annotation" and name == "hunt.workon"]
     if len(loops) != 1:
         raise AssertionError(f"{path}: {len(loops)} hunt.workon spans")
     busy_us, end = 0.0, float("-inf")
     for start, stop in kernels:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
-    loop_ms = loops[0]["dur"] / 1e3
+    loop_ms = loops[0] / 1e3
     return {"fused_gram_launches": gram_launches, "launch_shapes": dict(shapes),
             "kernels": len(kernels),
             "loop_ms": loop_ms, "device_busy_ms": busy_us / 1e3,
@@ -1359,7 +1348,7 @@ def run_cohort(commands, timeout, env=None):
     process still running at ``timeout`` (or after a failure here) is killed
     with everything it started.  Returns the wall seconds; raises on a
     nonzero exit code."""
-    env = dict(os.environ, PYTHONPATH=ROOT, **(env or {}))
+    env = {**os.environ, "PYTHONPATH": ROOT, **(env or {})}
     procs = [subprocess.Popen(argv, env=env, cwd=cwd, stdout=subprocess.DEVNULL,
                               stderr=subprocess.PIPE, text=True, start_new_session=True)
              for argv, cwd in commands]
@@ -1381,9 +1370,14 @@ def run_cohort(commands, timeout, env=None):
 
 
 def read_traces(prof):
-    """:func:`read_worker_trace` of every trace in ``prof``, with its pid."""
-    return [dict(pid=int(f[6:-5]), **read_worker_trace(os.path.join(prof, f)))
-            for f in sorted(os.listdir(prof)) if f.startswith("trace-")]
+    """:func:`read_worker_trace` of every trace in ``prof``, with its pid;
+    ``TRACE_READS`` adds up the traces read and the seconds it took."""
+    t0 = time.perf_counter()
+    names = sorted(f for f in os.listdir(prof) if f.startswith("trace-"))
+    rows = [dict(pid=int(f[6:-5]), **read_worker_trace(os.path.join(prof, f))) for f in names]
+    TRACE_READS["traces"] += len(names)
+    TRACE_READS["seconds"] += time.perf_counter() - t0
+    return rows
 
 
 def run_cli_workers(tmp, device, workers=CLI_WORKERS, max_trials=CLI_WORKER_TRIALS, q=CLI_Q,
@@ -3601,10 +3595,12 @@ def phase_device_plane(device, tmp):
         main_algo, lambda: main_algo.fused_step_plan(Q), "tpu_bo"))
     from orion_tpu_torch.algo.base import create_algo
     from orion_tpu_torch.benchmarks.functions import BENCHMARKS
+    from orion_tpu_torch.benchmarks.runner import PRESETS
     from orion_tpu_torch.space.dsl import build_space
 
-    space = build_space(ACKLEY50)
-    asha = create_algo(space, {"asha_bo": ASHA_BO}, seed=0, device=device)
+    preset = PRESETS["asha_bo-ackley50"]
+    space = build_space(preset["priors"])
+    asha = create_algo(space, preset["algorithm"], seed=0, device=device)
     params = asha.suggest(512)
     cube = space.params_to_cube(params)
     values = BENCHMARKS["ackley50"]["fn"](torch.from_numpy(cube)).numpy()
@@ -4531,13 +4527,21 @@ MESH_SLOTS = 4
 MESH_ROUNDS = 3  # replayed rounds of each arm, alternating
 MESH_TENANTS = 8
 MESH_SHAPE = (ALGO["n_candidates"] // MESH_SLOTS, 256, 6)
-#: (run, priors, function, algorithm config, batch, rounds): each round of
-#: the sharded algorithm against the unsharded one in lockstep.
-MESH_ALGO_RUNS = [
-    ("asha_bo", ACKLEY50, "ackley50", {"asha_bo": ASHA_BO}, 512, 2),
-    ("tpe", _uniform_priors(6), "hartmann6", {"tpe": {}}, 16, 3),
-    ("bohb", ACKLEY50, "ackley50", {"bohb": {"n_candidates": 8192, "min_points": 64}}, 512, 2),
-]
+
+
+def mesh_algo_runs():
+    """(run, priors, function, algorithm config, batch, rounds): each round
+    of the sharded algorithm against the unsharded one in lockstep;
+    ``asha_bo`` and ``bohb`` at their ackley50 presets' priors, config and
+    batch, ``tpe`` (no preset) at the ``algorithms`` phase's row."""
+    from orion_tpu_torch.benchmarks.runner import _uniform_priors
+
+    def preset(name, rounds):
+        _run, priors, fn_name, config, _trials, batch, _seeds = _preset_run(f"{name}-ackley50")
+        return (name, priors, fn_name, config, batch, rounds)
+
+    return [preset("asha_bo", 2), ("tpe", _uniform_priors(6), "hartmann6", {"tpe": {}}, 16, 3),
+            preset("bohb", 2)]
 
 
 def _mesh_algo(card, n_slots, seed):
@@ -4625,6 +4629,7 @@ def run_mesh_slots(card):
     arms.  Returns the line, the sharded rounds' launches and the chunk's
     kernel case."""
     from orion_tpu_torch.algo import sharding
+    from orion_tpu_torch.benchmarks.gram_bench import gram_bound, graph_ms
     from orion_tpu_torch.ops.gram import fused_gram, fused_gram_reference
 
     meshed, plain = _mesh_algo(card, MESH_SLOTS, seed=1), _mesh_algo(card, None, seed=1)
@@ -4656,10 +4661,10 @@ def run_mesh_slots(card):
         raise AssertionError(f"mesh (b): a chunk's fused_gram differs by {errs} > {limit}")
     chunk = pool.shards[0]
     bound_ms, bound_by = gram_bound(*MESH_SHAPE)
-    kernel_ms = _graph_ms(lambda: fused_gram(chunk, state.x, inv, amp))
+    kernel_ms = graph_ms(lambda: fused_gram(chunk, state.x, inv, amp))
     case = {"m": MESH_SHAPE[0], "n": MESH_SHAPE[1], "d": MESH_SHAPE[2],
             "max_abs_err": max(errs), "tolerance": limit, "ms": kernel_ms,
-            "plain_ms": _graph_ms(lambda: fused_gram_reference(chunk, state.x, inv, amp)),
+            "plain_ms": graph_ms(lambda: fused_gram_reference(chunk, state.x, inv, amp)),
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / kernel_ms}
     eager = {"mesh": [], "plain": []}
     for _ in range(MESH_ROUNDS):
@@ -4682,7 +4687,7 @@ def run_mesh_slots(card):
             "placement": fractions, "chunk_case": case, "smi": smi_line()}, launches, case
 
 
-def run_mesh_algorithms(card, runs=MESH_ALGO_RUNS):
+def run_mesh_algorithms(card, runs=None):
     """(c) ``asha_bo``, ``tpe`` and ``bohb`` sharded over MESH_SLOTS slots
     against the unsharded algorithm, in lockstep from one seed: every
     round's suggestions equal, the GP fit bitwise and the health within
@@ -4696,7 +4701,7 @@ def run_mesh_algorithms(card, runs=MESH_ALGO_RUNS):
     from orion_tpu_torch.space.dsl import build_space
 
     out, launches = {}, 0
-    for name, priors, fn_name, config, batch, rounds in runs:
+    for name, priors, fn_name, config, batch, rounds in runs or mesh_algo_runs():
         space = build_space(priors)
         (algo_name, cfg), = config.items()
         meshed = create_algo(space, {algo_name: dict(cfg, use_mesh=True,
@@ -4828,10 +4833,177 @@ def phase_mesh(device):
             "tenants": tenant_launches}, case
 
 
+#: The ``benchmarks`` phase.  (c): presets through ``runner.main`` at their
+#: full budgets, the two no other phase runs through the port first;
+#: ``BENCH_GRAM_PRESETS`` must launch ``fused_gram``.  (d): ``host_profile``'s
+#: arguments (its default preset at a quarter of its default budget).
+BENCH_PRESETS = ("mixed-lenet", "thompson-rosenbrock20", "tpu_bo-hartmann6",
+                 "turbo-rosenbrock20", "asha-ackley50-q4096")
+BENCH_GRAM_PRESETS = ("thompson-rosenbrock20",)
+PROFILE_ARGV = ["asha-ackley50", "--trials", "512", "--batch", "512", "--top", "15"]
+#: Each bench row's columns that its line prints.
+GRAM_COLUMNS = ("kind", "m", "n", "d", "kernel_ms", "plain_ms", "speedup", "bound_ms",
+                "bound_by", "bound_share", "max_abs_err")
+
+
+def _quiet(fn, *args, **kwargs):
+    """``fn``'s result and what it printed (the benches print their own
+    rows; this script prints its phase lines)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kwargs)
+    return result, out.getvalue()
+
+
+def run_bench_gram(device):
+    """(a) ``run_gram_bench`` at its 7 shapes, both kinds: every row within
+    1e-5 * max(1, amplitude) of the plain path (amplitude 1)."""
+    from orion_tpu_torch.benchmarks.gram_bench import SHAPES, run_gram_bench
+
+    rows = []
+    for kind in KINDS:
+        rows += _quiet(run_gram_bench, kind=kind, device=device)[0]
+    # The bench's amplitude is 1: the bar is 1e-5 * max(1, amplitude).
+    bad = [row for row in rows if not row["max_abs_err"] <= 1e-5]
+    if bad or len(rows) != len(KINDS) * len(SHAPES):
+        raise AssertionError(f"benchmarks (a): {len(rows)} rows, over the tolerance: {bad}")
+    return {"rows": [{k: row[k] for k in GRAM_COLUMNS} for row in rows],
+            "device": rows[0]["device"], "smi": smi_line()}
+
+
+def run_bench_suggest(device, main_round_ms):
+    """(b) ``run_suggest_bench`` shape by shape, ``fused_gram``'s launches
+    zeroed just before and read just after each, with their (m, n, d): at
+    least one a timed round at the shape's cross-gram (candidates x fit
+    buffer x d).  Returns the rows and the launches by shape."""
+    from orion_tpu_torch.benchmarks import suggest_bench
+    from orion_tpu_torch.ops.gram import fused_gram
+
+    rows, launches = [], {}
+    for name, cfg in suggest_bench.SHAPES.items():
+        fused_gram.launches = 0
+        with _LaunchShapes() as seen:
+            (row,), _ = _quiet(suggest_bench.run_suggest_bench, shapes=[name], device=device)
+        launches[name] = fused_gram.launches
+        cross = (cfg["n_candidates"], 1 << (cfg["n_obs"] - 1).bit_length(), cfg["d"])
+        # The warm-up round, 8 samples of _K_HI replays and 8 wall rounds.
+        timed = 1 + 8 * (suggest_bench._K_HI + 1)
+        if seen.shapes[cross] < timed:
+            raise AssertionError(f"benchmarks (b) {name}: fused_gram at {cross} "
+                                 f"{seen.shapes[cross]} times, under {timed} rounds: "
+                                 f"{dict(seen.shapes)}")
+        row.update(fused_gram_launches=launches[name], timed_rounds=timed,
+                   launch_shapes={"x".join(map(str, k)): v for k, v in seen.shapes.items()})
+        if name == "hartmann6-q1024":
+            row["main_path_replayed_round_ms"] = main_round_ms
+        rows.append(row)
+    return rows, launches
+
+
+def run_bench_presets(device, presets=BENCH_PRESETS):
+    """(c) ``runner.main`` over ``presets``, one at a time, ``fused_gram``
+    zeroed just before and read just after each: every trial of the budget
+    run (or the algorithm done), a finite regret beside the reference's
+    median from ``BENCH_SEEDS.json``."""
+    from orion_tpu_torch.benchmarks import runner
+    from orion_tpu_torch.ops.gram import fused_gram
+
+    rows, launches = [], {}
+    for name in presets:
+        fused_gram.launches = 0
+        _, printed = _quiet(runner.main, [name, "--device", device.type])
+        launches[name] = fused_gram.launches
+        (row,) = [json.loads(line) for line in printed.splitlines()]
+        budget = runner.PRESETS[name]["max_trials"]
+        if not (row["trials"] == budget and np.isfinite(row["simple_regret"])):
+            raise AssertionError(f"benchmarks (c) {name}: {row} against a budget of {budget}")
+        if name in BENCH_GRAM_PRESETS and launches[name] < 1:
+            raise AssertionError(f"benchmarks (c) {name}: fused_gram never launched")
+        rows.append(dict(row, budget=budget, fused_gram_launches=launches[name],
+                         reference=_reference_regret(name)))
+    return rows, launches
+
+
+def run_bench_profile(device, argv=PROFILE_ARGV):
+    """(d) ``host_profile.main``: its result dict and a non-empty tottime
+    table."""
+    import ast
+
+    from orion_tpu_torch.benchmarks import host_profile
+    from orion_tpu_torch.ops.gram import fused_gram
+
+    fused_gram.launches = 0
+    _, printed = _quiet(host_profile.main, argv + ["--device", device.type])
+    first, rest = printed.split("\n", 1)
+    header = rest.index("tottime")
+    table = [line.strip() for line in rest[header:].splitlines()[1:] if line.strip()]
+    if not table:
+        raise AssertionError(f"benchmarks (d): no tottime rows in {printed!r}")
+    return {"argv": argv, "result": ast.literal_eval(first), "table_rows": len(table),
+            "top": table[:8]}, fused_gram.launches
+
+
+def phase_benchmarks(device, main_round_ms):
+    """The benchmark library (``orion_tpu_torch/benchmarks``) on the card:
+    (a) to (d) above.  Returns ``fused_gram``'s launches by part (those of
+    (a) compare the kernel with its plain version and are not counted)."""
+    emit("benchmarks", part="gram", **run_bench_gram(device))
+    rows, suggest_launches = run_bench_suggest(device, main_round_ms)
+    for row in rows:
+        emit("benchmarks", part="suggest", **row)
+    rows, preset_launches = run_bench_presets(device)
+    for row in rows:
+        emit("benchmarks", part="runner", **row)
+    profile, profile_launches = run_bench_profile(device)
+    emit("benchmarks", part="host_profile", **profile)
+    return {"suggest_bench": suggest_launches, "runner": preset_launches,
+            "host_profile": profile_launches}
+
+
+#: Compiled bytecode of the modules this script's processes import.  Where
+#: the environment sets ``PYTHONDONTWRITEBYTECODE``, without a cache every
+#: process (a cohort's worker, a server, an admin command) compiles torch's
+#: modules from source again.
+PYCACHE = os.path.join(ROOT, "build", "pycache")
+WARM_IMPORTS = """
+import importlib, pkgutil
+import numpy, torch, torch.autograd.profiler, torch.distributed, torch.utils.flop_counter
+import orion_tpu_torch
+for module in pkgutil.walk_packages(orion_tpu_torch.__path__, "orion_tpu_torch."):
+    importlib.import_module(module.name)
+"""
+
+
+def warm_bytecode():
+    """Start one process that imports what this script's processes import,
+    with bytecode writing on, into ``PYCACHE``; point this process and
+    every process it starts later at that cache.  They only read it (a
+    module not compiled there yet compiles in memory, as before).  Returns
+    the warming process."""
+    env = {**os.environ, "PYTHONPATH": ROOT, "PYTHONPYCACHEPREFIX": PYCACHE,
+           "PYTHONDONTWRITEBYTECODE": ""}
+    proc = subprocess.Popen([sys.executable, "-c", WARM_IMPORTS], env=env, cwd=ROOT,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                            start_new_session=True)
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    sys.pycache_prefix = PYCACHE
+    return proc
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
+    warm = warm_bytecode()
+    try:
+        return run_phases()
+    finally:
+        if warm.poll() is None:
+            warm.kill()
+        warm.wait()
+
+
+def run_phases():
     import orion_tpu_torch.device  # noqa: F401  (precision switches)
 
     device = torch.device("cuda")
@@ -4865,7 +5037,11 @@ def main():
         serve_launches = run("serve", phase_serve, device, tmp)
     lint_launches = run("lint", phase_lint, device)
     mesh_launches, mesh_case = run("mesh", phase_mesh, device)
+    bench_launches = run("benchmarks", phase_benchmarks, device, plain_round_ms)
+    bench_total = sum(sum(v.values()) if isinstance(v, dict) else v
+                      for v in bench_launches.values())
     emit("seconds", **seconds, phases=sum(seconds.values()))
+    emit("trace_reads", **TRACE_READS)
 
     def case(shape):
         return next(c for c in cases if (c["m"], c["n"], c["d"]) == shape
@@ -4882,7 +5058,7 @@ def main():
                      + sum(telemetry_launches.values()) + sum(network_launches.values())
                      + sum(day2_launches.values()) + device_plane_launches
                      + sum(diagnosis_launches.values()) + sum(serve_launches.values())
-                     + lint_launches + sum(mesh_launches.values())),
+                     + lint_launches + sum(mesh_launches.values()) + bench_total),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
                              "hunt": hunt_launches, "cli": sum(cli_launches.values()),
                              "cli_runs": cli_launches, "evc": evc_launches,
@@ -4897,7 +5073,8 @@ def main():
                              "serve": sum(serve_launches.values()),
                              "serve_runs": serve_launches, "lint": lint_launches,
                              "mesh": sum(mesh_launches.values()),
-                             "mesh_runs": mesh_launches},
+                             "mesh_runs": mesh_launches, "benchmarks": bench_total,
+                             "benchmarks_runs": bench_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

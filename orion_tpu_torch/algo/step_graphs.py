@@ -290,6 +290,30 @@ class StepGraphs:
             if pools:
                 _release(entries, pools)
 
+    def replay_ms(self, device, signature, replays):
+        """Device ms of ``replays`` back-to-back replays of ``signature``'s
+        captured graph on ``device``, between two CUDA events on the step
+        stream, under the lock: the graph alone, no input copied in and no
+        output copied out (a bench's reading,
+        ``orion_tpu_torch/benchmarks/suggest_bench.py``).  Each replay
+        counts its ``fused_gram`` launches, as a round's does."""
+        device = _device_key(device)
+        with self.lock:
+            TSAN.write("StepGraphs._pool", self)  # the replays rewrite the static outputs
+            entry = self._entries[(device, signature)]
+            stream = self._stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(stream):
+                start.record(stream)
+                for _ in range(replays):
+                    with gram.replayed_launches(entry.launches):
+                        entry.graph.replay()
+                end.record(stream)
+            end.synchronize()
+        return start.elapsed_time(end)
+
     def _stream(self, device):
         stream = self._streams.get(device)
         if stream is None:

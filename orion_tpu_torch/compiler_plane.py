@@ -420,26 +420,29 @@ COMPILE_REGISTRY = CompileRegistry()
 
 @contextmanager
 def profiler_capture(directory, device=None, span=None):
-    """One shared ``torch.profiler`` capture: ``hunt --profile`` wraps each
-    worker's loop in it (``span="hunt.workon"``, the loop's extent in the
-    trace), ``profile --capture DIR`` its analysis pass.  Writes
-    ``DIR/trace-<pid>.json`` (a Chrome trace) also when the body raises —
-    the trace of a failed run is the one most worth reading — and prints
-    the same line for both.  ``device`` resolves as every entry point's
-    does (:func:`orion_tpu_torch.device.resolve_device`): None means
-    ``cuda`` and raises where no card is present, so a host without one
-    never writes a CPU-only trace in place of the card's."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """One shared profiler capture (kineto: CPU ops and, on a card, CUDA
+    kernels): ``hunt --profile`` wraps each worker's loop in it
+    (``span="hunt.workon"``, the loop's extent in the trace), ``profile
+    --capture DIR`` its analysis pass.  Writes ``DIR/trace-<pid>.json`` (a
+    Chrome trace) also when the body raises — the trace of a failed run is
+    the one most worth reading — and prints the same line for both.
+    ``device`` resolves as every entry point's does
+    (:func:`orion_tpu_torch.device.resolve_device`): None means ``cuda``
+    and raises where no card is present, so a host without one never
+    writes a CPU-only trace in place of the card's.
+
+    The profiler is the kineto one that ``torch.profiler.profile`` wraps,
+    driven directly, with the same trace: the wrapper's start reads one
+    flag of ``torch._inductor``, and importing that (``torch._dynamo``,
+    sympy) takes a fresh worker process seconds before its loop starts."""
+    from torch.autograd.profiler import profile, record_function
 
     from orion_tpu_torch.device import resolve_device
 
     device = resolve_device(device)
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"trace-{os.getpid()}.json")
-    prof = profile(activities=activities)
+    prof = profile(use_device="cuda" if device.type == "cuda" else None, use_kineto=True)
     try:
         with prof:
             if span is None:

@@ -1382,3 +1382,39 @@ def test_nccl_cohort_of_two_cards(cuda):
                       if ln.startswith(("PSUM", "RESULT"))})
     assert float(lines[0]["PSUM"]) == float(lines[1]["PSUM"]) == 72.0
     assert lines[0]["RESULT"] == lines[1]["RESULT"]
+
+
+@pytest.mark.cuda
+def test_benchmarks_time_the_kernel_and_the_replayed_round_on_the_card(cuda):
+    """``run_gram_bench`` at one shape: the kernel launched, within 1e-5 of
+    the plain path, CUDA-event times and the card's name in the row;
+    ``device_seconds("hartmann6-q1024")``: a positive replay time, with
+    ``fused_gram`` launched at the round's 16384 x 256 x 6 cross-gram in
+    every replay, and the process's step graphs left untouched."""
+    from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS
+    from orion_tpu_torch.benchmarks.gram_bench import run_gram_bench
+    from orion_tpu_torch.benchmarks.suggest_bench import device_seconds
+
+    before = gram.fused_gram.launches
+    (row,) = run_gram_bench(device=cuda, shapes=[(16384, 256, 50)], reps=3)
+    assert gram.fused_gram.launches > before
+    assert row["backend"] == "cuda" and row["device"] == torch.cuda.get_device_name(0)
+    assert row["max_abs_err"] <= 1e-5 and 0 < row["kernel_ms"] < row["plain_ms"]
+    assert 0 < row["bound_share"] <= 1.0
+
+    signatures = [(dev, sig) for dev, sig, _entry in STEP_GRAPHS.entries()]
+    shapes, plan = [], gram._launch_plan
+
+    def counting(m, n, d, aligned):
+        shapes.append((m, n, d))
+        return plan(m, n, d, aligned)
+
+    gram._launch_plan = counting
+    try:
+        seconds = device_seconds("hartmann6-q1024", reps=2, k_hi=2, device=cuda)
+    finally:
+        gram._launch_plan = plan
+    assert 0 < seconds < 1.0
+    # The capture records its launch; each of the 2 x 2 replays counts one.
+    assert shapes.count((16384, 256, 6)) >= 4, shapes
+    assert [(dev, sig) for dev, sig, _entry in STEP_GRAPHS.entries()] == signatures

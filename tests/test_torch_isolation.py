@@ -3,9 +3,9 @@ neither JAX (``jax``, ``jaxlib``, ``optax``) nor any module of the JAX
 package ``orion_tpu`` — matched as the exact module or a dotted prefix, so
 ``orion_tpu_torch`` itself does not count.  The telemetry plane's, the
 network plane's, the day-2 operations', the device plane's, the
-doctor's and sanitizer's, the suggest gateway's and the static analysis'
-modules are also checked by name, and for importing without side
-effects."""
+doctor's and sanitizer's, the suggest gateway's, the static analysis' and
+the benchmark library's modules are also checked by name, and for
+importing without side effects."""
 
 import ast
 import os
@@ -343,6 +343,46 @@ def test_static_analysis_stands_alone():
         "assert 'torch' not in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+BENCHMARK_LIBRARY = ("benchmarks", "benchmarks.runner", "benchmarks.gram_bench",
+                     "benchmarks.suggest_bench", "benchmarks.host_profile")
+
+
+def test_benchmarks_stand_alone():
+    """The benchmark library's modules are among the checked files, and in
+    a fresh interpreter where importing ``jax`` or any ``orion_tpu`` module
+    raises, they import, initialize no CUDA and capture nothing: the
+    runner, the micro-benchmarks and the profiler need only the port."""
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in BENCHMARK_LIBRARY:
+        base = os.path.join("orion_tpu_torch", *name.split("."))
+        assert base + ".py" in files or os.path.join(base, "__init__.py") in files, name
+    modules = [f"orion_tpu_torch.{name}" for name in BENCHMARK_LIBRARY]
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        f"FORBIDDEN = {FORBIDDEN!r}\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if any(name == f or name.startswith(f + '.') for f in FORBIDDEN):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import torch\n"
+        "from orion_tpu_torch.algo.step_graphs import STEP_GRAPHS\n"
+        "from orion_tpu_torch.benchmarks.runner import PRESETS\n"
+        "assert len(PRESETS) == 11\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert STEP_GRAPHS.entries() == []\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -1,4 +1,4 @@
-"""Two measurements of ``chip_smoke.py``'s paths on one CUDA card.
+"""Measurements of ``chip_smoke.py``'s paths on one CUDA card.
 
 ``legs`` times, one after the other in one process, each leg of
 ``chip_smoke.py`` that a depth cut shortened, at its depth before the cut
@@ -13,6 +13,23 @@ first GP round registers that much later; one JSON line each with the
 phase's seconds and the live drain's timeline (drain window, the gates,
 the GP round's registration, the fence, trials ended in and after it).
 
+``traces`` runs ``chip_smoke.py``'s ``cli`` workers cohort (eight profiled
+``hunt`` processes) with this checkout's package and, given ``--parent
+DIR``, with the package of the checkout in DIR, in turns (this, parent,
+parent, this), then its regret cohort, then reads the kernel and range
+events of the last two cohorts' traces four times, by parsing each whole trace and by the
+script's scan (``chip_smoke.trace_events``) in turns (parse, scan, scan,
+parse; both must agree): one JSON line a reading with its seconds, one
+line a cohort with its wall seconds, and one line a cohort process with
+its ``hunt.workon`` loop's start and end against the cohort's start and
+end (from the trace's own clock, ``baseTimeNanoseconds`` plus ``ts``).
+
+``bytecode`` times a fresh process importing the CLI's ``hunt`` with and
+without ``chip_smoke.py``'s bytecode cache (``chip_smoke.warm_bytecode``,
+whose warming process it times too), then the ``cli`` workers cohort
+without and with the cache in turns (without, with, with, without): one
+JSON line a process or cohort, each cohort with its processes' loop starts.
+
 ``mix`` runs the main path's ``tpu_bo`` through an ``ExperimentClient`` on
 memory storage whose q bucket changes from round to round, as a hunt's does
 when its workers ask for different batch sizes: one JSON line with each
@@ -23,6 +40,8 @@ two versions on one card in one call::
 
     python3 tests/torch_chip_legs.py legs
     python3 tests/torch_chip_legs.py drain
+    python3 tests/torch_chip_legs.py traces [--parent build/parent]
+    python3 tests/torch_chip_legs.py bytecode
     PYTHONPATH=. python3 tests/torch_chip_legs.py mix --label change
     PYTHONPATH=<other checkout> python3 tests/torch_chip_legs.py mix --label parent
 """
@@ -30,6 +49,8 @@ two versions on one card in one call::
 import argparse
 import json
 import os
+import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -185,10 +206,139 @@ def drain(lates=(0.0, 40.0)):
         cs.emit = real_emit
 
 
+def _loop_window(path):
+    """Wall-clock seconds (epoch) of the ``hunt.workon`` span of a trace."""
+    with open(path) as handle:
+        trace = json.load(handle)
+    base_us = trace.get("baseTimeNanoseconds", 0) / 1e3
+    (loop,) = [e for e in trace["traceEvents"]
+               if e.get("name") == "hunt.workon" and e.get("cat") == "user_annotation"]
+    return (base_us + loop["ts"]) / 1e6, (base_us + loop["ts"] + loop["dur"]) / 1e6
+
+
+def traces(parent=None):
+    sys.path.append(ROOT)
+    import chip_smoke as cs
+    import orion_tpu_torch.device  # noqa: F401  (precision switches)
+
+    device = torch.device("cuda")
+    cs.phase_build()
+    print(json.dumps({"smi": _smi()}), flush=True)
+    cohorts = []
+    real_cohort = cs.run_cohort
+    package = {"root": ROOT}
+
+    def timed_cohort(commands, timeout, env=None):
+        start = time.time()
+        # Both packages load the kernel this checkout built (the same source).
+        wall_s = real_cohort(commands, timeout, env=dict(
+            env or {}, PYTHONPATH=package["root"],
+            ORION_TPU_JIT_CACHE=os.path.join(ROOT, "build")))
+        cohorts.append((package["label"], start, start + wall_s, [cwd for _argv, cwd in commands]))
+        print(json.dumps({"leg": "cohort", "cohort": package["label"], "wall_s": wall_s}),
+              flush=True)
+        return wall_s
+
+    arms = [("this checkout", ROOT)]
+    if parent:
+        arms.append(("parent", os.path.abspath(parent)))
+    cs.run_cohort = timed_cohort
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+            for i, (label, root) in enumerate(arms + arms[::-1]):
+                package.update(root=root, label=f"cli workers, {label}")
+                run_dir = os.path.join(tmp, f"workers{i}")
+                os.makedirs(run_dir)
+                cs.run_cli_workers(run_dir, device)
+            package.update(root=ROOT, label="cli regret, this checkout")
+            cs.run_cli_regret(tmp, device)
+            paths = []  # the last workers cohort's and the regret cohort's: read below
+            for label, start, end, cwds in cohorts:
+                for cwd in cwds:
+                    prof = os.path.join(cwd, "profile")
+                    for name in sorted(f for f in os.listdir(prof) if f.startswith("trace-")):
+                        path = os.path.join(prof, name)
+                        if (label, start) in [(c[0], c[1]) for c in cohorts[-2:]]:
+                            paths.append(path)
+                        loop_start, loop_end = _loop_window(path)
+                        print(json.dumps({"leg": "cohort process", "cohort": label,
+                                          "trace": name, "cohort_wall_s": end - start,
+                                          "loop_start_s": loop_start - start,
+                                          "loop_end_s": loop_end - start,
+                                          "after_loop_s": end - loop_end}), flush=True)
+            nbytes = sum(os.path.getsize(p) for p in paths)
+            readings = {}
+            for mode in ("parse", "scan", "scan", "parse"):
+                t0 = time.perf_counter()
+                if mode == "scan":
+                    events = [cs.trace_events(p) for p in paths]
+                else:
+                    events = []
+                    for p in paths:
+                        with open(p) as handle:
+                            events.append(cs.json_trace_events(handle.read()))
+                seconds = time.perf_counter() - t0
+                readings.setdefault(mode, events)
+                print(json.dumps({"leg": "trace reads", "mode": mode, "traces": len(paths),
+                                  "bytes": nbytes, "events": sum(map(len, events)),
+                                  "seconds": seconds}), flush=True)
+            if readings["scan"] != readings["parse"]:
+                raise AssertionError("the scan and the parse read different events")
+    finally:
+        cs.run_cohort = real_cohort
+
+
+def bytecode():
+    sys.path.append(ROOT)
+    import chip_smoke as cs
+    import orion_tpu_torch.device  # noqa: F401  (precision switches)
+
+    device = torch.device("cuda")
+    cs.phase_build()
+    print(json.dumps({"smi": _smi()}), flush=True)
+    shutil.rmtree(cs.PYCACHE, ignore_errors=True)
+
+    def start_ms(cache):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPYCACHEPREFIX"}
+        if cache:
+            env["PYTHONPYCACHEPREFIX"] = cs.PYCACHE
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import orion_tpu_torch.cli.hunt, torch"],
+                       env=dict(env, PYTHONPATH=ROOT), check=True)
+        return (time.perf_counter() - t0) * 1e3
+
+    print(json.dumps({"leg": "process", "cache": False, "ms": start_ms(False)}), flush=True)
+    t0 = time.perf_counter()
+    warm = cs.warm_bytecode()
+    warm.wait()
+    print(json.dumps({"leg": "warm", "rc": warm.returncode,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    for cache in (True, False, True):
+        print(json.dumps({"leg": "process", "cache": cache, "ms": start_ms(cache)}), flush=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for i, cache in enumerate((False, True, True, False)):
+            if cache:
+                os.environ["PYTHONPYCACHEPREFIX"] = cs.PYCACHE
+            else:
+                os.environ.pop("PYTHONPYCACHEPREFIX", None)
+            run_dir = os.path.join(tmp, f"workers{i}")
+            os.makedirs(run_dir)
+            start = time.time()
+            out = cs.run_cli_workers(run_dir, device)
+            prof = os.path.join(run_dir, "workers", "profile")
+            starts = sorted(_loop_window(os.path.join(prof, f))[0] - start
+                            for f in os.listdir(prof) if f.startswith("trace-"))
+            print(json.dumps({"leg": "cli workers", "cache": cache, "wall_s": out["wall_s"],
+                              "loop_starts_s": starts}), flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("legs", "mix", "drain"))
+    parser.add_argument("what", choices=("legs", "mix", "drain", "traces", "bytecode"))
     parser.add_argument("--label", default="this checkout")
+    parser.add_argument("--parent", default=None,
+                        help="traces: a checkout whose package the cli workers cohort "
+                             "also runs, in turns with this one's")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_chip_legs: no CUDA device", file=sys.stderr)
@@ -196,7 +346,8 @@ def main(argv=None):
     if args.what == "mix":
         mix(args.label)
     else:
-        (legs if args.what == "legs" else drain)()
+        {"legs": legs, "drain": drain, "bytecode": bytecode,
+         "traces": lambda: traces(args.parent)}[args.what]()
     return 0
 
 

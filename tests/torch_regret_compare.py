@@ -1,6 +1,6 @@
 """Final simple regret of ``orion_tpu`` and of the port, run through the
 same plain loop on the CPU over seeds 0..n-1, at a run of
-``chip_smoke.ALGO_RUNS``:
+``chip_smoke.algo_runs()``:
 
     JAX_PLATFORMS=cpu python tests/torch_regret_compare.py tpe-hartmann6 10
 
@@ -45,7 +45,7 @@ def final_regret(algo, space, fn_name, max_trials, batch):
 
 def main(run, n_seeds):
     name, priors, fn_name, config, max_trials, batch, _seeds = next(
-        r for r in chip_smoke.ALGO_RUNS if r[0] == run)
+        r for r in chip_smoke.algo_runs() if r[0] == run)
     out = {}
     for label, make in (
         ("reference", lambda s: (jax_create_algo(jax_build_space(priors), config, seed=s),
