@@ -282,7 +282,30 @@ non-zero; nothing is caught and passed over):
    ``BENCH_SEEDS.json``; ``thompson-rosenbrock20`` launches ``fused_gram``.
    (d) ``host_profile.main`` on ``asha-ackley50`` at 512 trials: the result
    and a non-empty tottime table.
-20. The ``{"kernels": [...]}`` line, the card's name and power limit, and
+20. ``installed``: the port as a user installs it, outside this checkout.
+   ``pyproject.toml``, ``README.md`` and ``orion_tpu_torch/`` are copied
+   into a temporary directory and ``pip install --no-deps
+   --no-build-isolation --target <tmp>/site``-ed, with the plugin fixture
+   ``tests/fixtures/torch_gd_plugin`` beside them.  (1) In this process:
+   ``ops/csrc/gram.cu`` shipped, and the installed ``_build`` (loaded by
+   its path) builds it from a cold ``XDG_CACHE_HOME`` into that cache,
+   the ``nvcc`` seconds timed.  Then at once, each a fresh interpreter with
+   ``PYTHONPATH`` the ``site`` alone, ``XDG_CACHE_HOME`` the temporary
+   cache and its working directory outside the checkout: a probe checks
+   that ``orion_tpu_torch`` is imported from ``site``, that it loads the
+   cache's library and that ``fused_gram`` matches its plain version at
+   16384 x 256 x 6 within 1e-5 * max(1, amplitude); (2) the installed
+   ``orion-tpu-torch hunt`` of ``tpu_bo`` at q=1024 (the ``cli`` phase's
+   script and config) on two stores seeded with 256 completed trials, 16
+   trials each: two GP rounds, ``fused_gram`` launched at 16384 x 256 x 6
+   in each (the workers' profiler traces); (3) the installed plugin,
+   found through its ``orion_tpu_torch.algo`` entry point, hunts the
+   quadratic box 25 trials to within 1e-4 of its optimum 23.4; (4) the
+   LeNet example (``examples/torch_mnist_lenet.py``) hunts 3 trials,
+   training on the card.  One JSON line a part (seconds, ``nvcc``
+   seconds, launches, trials); nothing new under the checkout's
+   ``build/`` or under ``site``'s parent, and one library in the cache.
+21. The ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA device it exits with code 1 before printing any result.
@@ -4960,6 +4983,351 @@ def phase_benchmarks(device, main_round_ms):
             "host_profile": profile_launches}
 
 
+#: The ``installed`` phase: what an install of the port is built from, the
+#: trials of each part.
+INSTALL_TREE = ("pyproject.toml", "README.md", "orion_tpu_torch")
+INSTALLED_EXPERIMENTS = ("installed-a", "installed-b")  # one GP round each
+INSTALLED_TRIALS = 16  # past each experiment's seeded HISTORY
+PLUGIN_FIXTURE = os.path.join("tests", "fixtures", "torch_gd_plugin")
+PLUGIN_BOX = os.path.join("tests", "fixtures", "torch_black_box.py")
+PLUGIN_TRIALS = 25
+LENET_EXAMPLE = os.path.join("examples", "torch_mnist_lenet.py")
+LENET_TRIALS = 3
+LENET_PRIORS = ["--lr~loguniform(1e-3, 1e-1)", "--batch-size~uniform(64, 256, discrete=True)",
+                "--width~uniform(1, 2, discrete=True)", "--act~choices(['relu', 'tanh'])"]
+#: Run by the installed package in a fresh interpreter: where it was
+#: imported from, where it builds, the library it loaded, and ``fused_gram``
+#: at the main path's shape against its plain version.
+INSTALLED_PROBE = """
+import json, sys
+import torch
+import orion_tpu_torch
+import orion_tpu_torch.device
+from orion_tpu_torch.ops import _build, gram
+
+device = torch.device(sys.argv[1])
+m, n, d = (int(v) for v in sys.argv[2:5])
+gen = torch.Generator(device=device).manual_seed(0)
+xa = torch.rand((m, d), generator=gen, device=device)
+xb = torch.rand((n, d), generator=gen, device=device)
+ils = 0.5 + 2.5 * torch.rand((d,), generator=gen, device=device)
+amp = 0.2 + 2.8 * torch.rand((), generator=gen, device=device)
+got = gram.fused_gram(xa, xb, ils, amp)
+want = gram.fused_gram_reference(xa, xb, ils, amp)
+loaded = _build._loaded.get("gram")
+print(json.dumps({"file": orion_tpu_torch.__file__, "build_dir": _build.BUILD_DIR,
+                  "library": _build.library_path("gram"),
+                  "loaded": loaded._name if loaded is not None else None,
+                  "check_launches": gram.fused_gram.launches,
+                  "max_abs_err": float((got - want).abs().max()), "amplitude": float(amp)}))
+"""
+
+
+def tree_files(path):
+    """Every file under ``path``, relative to it (an empty set if absent)."""
+    out = set()
+    for base, _dirs, files in os.walk(path):
+        out.update(os.path.relpath(os.path.join(base, f), path) for f in files)
+    return out
+
+
+def copy_install_tree(dst, root=ROOT):
+    """Copy ``INSTALL_TREE`` (no bytecode) from the checkout into ``dst``;
+    returns the files copied, relative to ``dst``."""
+    ignore = shutil.ignore_patterns("__pycache__", "*.pyc")
+    for name in INSTALL_TREE:
+        src = os.path.join(root, name)
+        if os.path.isdir(src):
+            shutil.copytree(src, os.path.join(dst, name), ignore=ignore)
+        else:
+            shutil.copy2(src, os.path.join(dst, name))
+    return sorted(tree_files(dst))
+
+
+def pip_install(source, site):
+    """``pip install --no-deps --no-build-isolation --target site source``,
+    with no bytecode prefix: its compiled modules go beside the sources in
+    ``site``, not into this checkout's cache.  Returns the seconds."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPYCACHEPREFIX"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pip", "install", "-q", "--no-deps",
+                           "--no-build-isolation", "--target", site, source],
+                          env=env, capture_output=True, text=True, timeout=240)
+    if proc.returncode != 0:
+        raise AssertionError(f"installed: pip install {source} exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def load_installed_build(site, cache):
+    """The installed copy's ``ops/_build.py``, loaded in this process by its
+    path as it would load with ``XDG_CACHE_HOME=cache`` (no bytecode
+    written)."""
+    import importlib.util
+
+    path = os.path.join(site, "orion_tpu_torch", "ops", "_build.py")
+    spec = importlib.util.spec_from_file_location("installed_orion_tpu_torch_build", path)
+    module = importlib.util.module_from_spec(spec)
+    with _environ(XDG_CACHE_HOME=cache):
+        dont_write, sys.dont_write_bytecode = sys.dont_write_bytecode, True
+        try:
+            spec.loader.exec_module(module)
+        finally:
+            sys.dont_write_bytecode = dont_write
+    return module
+
+
+def run_processes(procs, env, timeout):
+    """Start every ``(name, argv, cwd)`` at once, each in a session of its
+    own with ``env`` as its whole environment and its output in
+    ``cwd/<name>.out`` and ``.err``; wait for all.  Returns each one's
+    seconds and standard output; raises on a nonzero exit code.  A process
+    still running at ``timeout`` (or after a failure here) is killed with
+    everything it started."""
+    started, ended, running = {}, {}, {}
+    try:
+        for name, argv, cwd in procs:
+            with open(os.path.join(cwd, f"{name}.out"), "w") as out, \
+                    open(os.path.join(cwd, f"{name}.err"), "w") as err:
+                started[name] = time.perf_counter()
+                running[name] = subprocess.Popen(argv, env=env, cwd=cwd, stdout=out,
+                                                 stderr=err, start_new_session=True)
+        t0 = time.perf_counter()
+        while len(ended) < len(running) and time.perf_counter() - t0 < timeout:
+            for name, proc in running.items():
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.perf_counter()
+            time.sleep(0.05)
+    finally:
+        for proc in running.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    out = {}
+    for name, _argv, cwd in procs:
+        with open(os.path.join(cwd, f"{name}.out")) as handle:
+            stdout = handle.read()
+        with open(os.path.join(cwd, f"{name}.err")) as handle:
+            stderr = handle.read()
+        if name not in ended or running[name].returncode != 0:
+            raise AssertionError(f"installed: {name} exited {running[name].returncode} "
+                                 f"(timeout {timeout} s): {stderr[-3000:]}")
+        out[name] = (ended[name] - started[name], stdout)
+    return out
+
+
+def install_port(inst):
+    """The set-up: ``INSTALL_TREE`` and the plugin fixture copied under
+    ``inst`` and both pip-installed into ``inst/site``."""
+    src, plugin, site = (os.path.join(inst, name) for name in ("src", "gd_plugin", "site"))
+    os.makedirs(src)
+    copied = copy_install_tree(src)
+    shutil.copytree(os.path.join(ROOT, PLUGIN_FIXTURE), plugin)
+    port_s = pip_install(src, site)
+    plugin_s = pip_install(plugin, site)
+    installed = tree_files(os.path.join(site, "orion_tpu_torch"))
+    wanted = {os.path.relpath(f, "orion_tpu_torch") for f in copied
+              if f.startswith("orion_tpu_torch" + os.sep)}
+    missing = sorted(wanted - installed)
+    if missing:
+        raise AssertionError(f"installed: pip left out {missing}")
+    return site, {"pip_s": port_s, "plugin_pip_s": plugin_s, "copied": len(copied),
+                  "package_files": len(wanted)}
+
+
+def run_installed_site(site, cache, device):
+    """Phase 1, in this process: the kernel source shipped, and the installed
+    ``_build`` builds ``gram`` from it into the cache, from cold."""
+    source = os.path.join(site, "orion_tpu_torch", "ops", "csrc", "gram.cu")
+    with open(source, "rb") as handle, \
+            open(os.path.join(ROOT, "orion_tpu_torch", "ops", "csrc", "gram.cu"), "rb") as ours:
+        if handle.read() != ours.read():
+            raise AssertionError(f"installed: {source} differs from the checkout's")
+    build = load_installed_build(site, cache)
+    library = build.library_path("gram")
+    if build.BUILD_DIR != os.path.join(cache, "orion_tpu_torch") or \
+            not library.startswith(cache + os.sep):
+        raise AssertionError(f"installed: builds into {build.BUILD_DIR}, not under {cache}")
+    if os.path.exists(library):
+        raise AssertionError(f"installed: {library} exists before the first build")
+    nvcc_s = None
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        built = build.build("gram")
+        nvcc_s = time.perf_counter() - t0
+        if built != library or not os.path.exists(library):
+            raise AssertionError(f"installed: built {built}, expected {library}")
+    return {"source": source, "build_dir": build.BUILD_DIR, "library": library,
+            "nvcc_s": nvcc_s}
+
+
+def _installed_hunts(runs, device):
+    """Phase 2's stores: one SQLite file a GP round, each with a history of
+    ``HISTORY`` completed through the library, so that the installed
+    worker's first round is a GP round."""
+    hunts = []
+    for name in INSTALLED_EXPERIMENTS:
+        run_dir = os.path.join(runs, name)
+        os.makedirs(run_dir)
+        script, db, log, storage, history = _seeded_store(run_dir, name, device, CLI_ALGO)
+        prof = os.path.join(run_dir, "profile")
+        argv = ["hunt", "-n", name, "-c", os.path.join(run_dir, "cli.yaml"), "--storage-path",
+                db, "--pool-size", str(CLI_Q), "--max-trials", str(HISTORY + INSTALLED_TRIALS),
+                "--device", device.type, "--profile", prof, script, *CLI_PRIORS, "--log", log]
+        hunts.append((name, run_dir, argv, storage, log, prof, history))
+    return hunts
+
+
+def _check_installed_hunt(name, storage, log, prof, history, device):
+    exp_id, trials = _fetch_trials(storage, name)
+    done, values, err = check_cli_trials(f"installed {name}", trials,
+                                         HISTORY + INSTALLED_TRIALS, device)
+    with open(log) as handle:
+        executed = handle.read().split()
+    fresh = {t.id for t in done} - history
+    if len(executed) != len(set(executed)) or fresh != set(executed):
+        raise AssertionError(f"installed {name}: {len(executed)} executions for "
+                             f"{len(fresh)} completed trials past the history")
+    [worker] = read_traces(prof)
+    main = "x".join(map(str, MAIN_SHAPE))
+    if worker["launch_shapes"].get(main, 0) < 1:
+        raise AssertionError(f"installed {name}: fused_gram launched at "
+                             f"{worker['launch_shapes']} (none at {main})")
+    return {"trials": len(fresh), "launches": worker["fused_gram_launches"],
+            "launch_shapes": worker["launch_shapes"], "device_busy_ms": worker["device_busy_ms"],
+            "idle_share": worker["idle_share"], "objective_max_abs_err": err}
+
+
+def _plugin_run(runs, device):
+    run_dir = os.path.join(runs, "plugin")
+    os.makedirs(run_dir)
+    conf = os.path.join(run_dir, "conf.yaml")
+    with open(conf, "w") as handle:
+        handle.write("algorithms: {gradient_descent: {learning_rate: 0.3}}\n"
+                     "strategy: NoParallelStrategy\n")
+    box = shutil.copy(os.path.join(ROOT, PLUGIN_BOX), run_dir)
+    db = os.path.join(run_dir, "db.pkl")
+    return run_dir, db, ["hunt", "-n", "gd-plugin", "-c", conf, "--storage-path", db,
+                         "--max-trials", str(PLUGIN_TRIALS), "--worker-trials",
+                         str(PLUGIN_TRIALS), "--device", device.type, box, "-x~uniform(-50,50)"]
+
+
+def _check_plugin(db):
+    from orion_tpu_torch.storage.base import create_storage
+
+    storage = create_storage({"type": "pickled", "path": db})
+    [exp] = storage.fetch_experiments({"name": "gd-plugin"})
+    values = [t.objective.value for t in storage.fetch_trials(uid=exp["_id"])
+              if t.status == "completed" and t.objective]
+    if exp["algorithms"] != {"gradient_descent": {"learning_rate": 0.3}}:
+        raise AssertionError(f"installed plugin: stored {exp['algorithms']}")
+    if len(values) != PLUGIN_TRIALS or not 23.4 - 1e-9 <= min(values) < 23.4 + 1e-4:
+        raise AssertionError(f"installed plugin: {len(values)} trials, best {min(values)}")
+    return {"trials": len(values), "best": min(values)}
+
+
+def _lenet_run(runs, device):
+    run_dir = os.path.join(runs, "lenet")
+    os.makedirs(run_dir)
+    script = shutil.copy(os.path.join(ROOT, LENET_EXAMPLE), run_dir)
+    db = os.path.join(run_dir, "db.pkl")
+    return run_dir, db, ["hunt", "-n", "lenet", "--storage-path", db, "--max-trials",
+                         str(LENET_TRIALS), "--worker-trials", str(LENET_TRIALS), "--device",
+                         device.type, script, "--device", device.type, *LENET_PRIORS]
+
+
+def _check_lenet(db):
+    from orion_tpu_torch.storage.base import create_storage
+
+    storage = create_storage({"type": "pickled", "path": db})
+    [exp] = storage.fetch_experiments({"name": "lenet"})
+    done = [t for t in storage.fetch_trials(uid=exp["_id"]) if t.status == "completed"]
+    errors = [t.objective.value for t in done]
+    if len(done) != LENET_TRIALS or not all(0.0 <= e <= 1.0 for e in errors):
+        raise AssertionError(f"installed lenet: {len(done)} trials, errors {errors}")
+    return {"trials": len(done), "validation_errors": errors}
+
+
+def phase_installed(device, timeout=600):
+    """The port as a user installs it, outside this checkout: set-up, then
+    (1) in this process, the shipped source built by the installed
+    ``_build`` into a temporary ``XDG_CACHE_HOME``; then at once, each a
+    fresh interpreter with ``PYTHONPATH`` the ``site`` alone and its working
+    directory outside the checkout: the package probed (``INSTALLED_PROBE``),
+    (2) the installed ``orion-tpu-torch hunt`` of ``tpu_bo`` at q=1024 on
+    two seeded stores, one GP round each, (3) the installed plugin's hunt,
+    (4) the LeNet example's hunt.  Nothing may appear under this checkout's
+    ``build/`` or under ``site``'s parent.  Returns ``fused_gram``'s
+    launches in (2)."""
+    inst = tempfile.mkdtemp(prefix="orion-tpu-torch-install-")
+    runs = tempfile.mkdtemp(prefix="orion-tpu-torch-installed-")
+    try:
+        t0 = time.perf_counter()
+        site, setup = install_port(inst)
+        emit("installed", part="setup", seconds=time.perf_counter() - t0, nvcc_s=None,
+             launches=0, trials=0, site=site, **setup)
+        checkout_build = tree_files(os.path.join(ROOT, "build"))
+        site_parent = tree_files(inst)
+        cache = os.path.join(runs, "cache")
+
+        t0 = time.perf_counter()
+        built = run_installed_site(site, cache, device)
+        emit("installed", part="site", seconds=time.perf_counter() - t0, launches=0, trials=0,
+             **built)
+
+        built_at = os.stat(built["library"]).st_mtime_ns if device.type == "cuda" else None
+        hunts = _installed_hunts(runs, device)
+        plugin_dir, plugin_db, plugin_argv = _plugin_run(runs, device)
+        lenet_dir, lenet_db, lenet_argv = _lenet_run(runs, device)
+        command = os.path.join(site, "bin", "orion-tpu-torch")
+        procs = [("probe", [sys.executable, "-c", INSTALLED_PROBE, device.type,
+                            *map(str, MAIN_SHAPE)], runs)]
+        procs += [(name, [command, *argv], run_dir) for name, run_dir, argv, *_ in hunts]
+        procs += [("plugin", [command, *plugin_argv], plugin_dir),
+                  ("lenet", [command, *lenet_argv], lenet_dir)]
+        env = {**os.environ, "PYTHONPATH": site, "XDG_CACHE_HOME": cache,
+               "PYTHONDONTWRITEBYTECODE": "1"}
+        t0 = time.perf_counter()
+        ran = run_processes(procs, env, timeout)
+        wall_s = time.perf_counter() - t0
+
+        probe = json.loads(ran["probe"][1].strip().splitlines()[-1])
+        limit = 1e-5 * max(1.0, probe["amplitude"])
+        if not probe["file"].startswith(os.path.join(site, "orion_tpu_torch") + os.sep):
+            raise AssertionError(f"installed: imported {probe['file']}, not from {site}")
+        if probe["loaded"] != built["library"] or probe["check_launches"] != 1 \
+                or not probe["max_abs_err"] <= limit:
+            raise AssertionError(f"installed: probe {probe} (library {built['library']}, "
+                                 f"tolerance {limit})")
+        emit("installed", part="probe", seconds=ran["probe"][0], nvcc_s=0.0, launches=0,
+             trials=0, shape=list(MAIN_SHAPE), tolerance=limit, **probe)
+        launches = {}
+        for name, _run_dir, _argv, storage, log, prof, history in hunts:
+            row = _check_installed_hunt(name, storage, log, prof, history, device)
+            launches[name] = row["launches"]
+            emit("installed", part="hunt", experiment=name, seconds=ran[name][0], nvcc_s=0.0,
+                 q=CLI_Q, history=HISTORY, **row)
+        emit("installed", part="plugin", seconds=ran["plugin"][0], nvcc_s=0.0, launches=0,
+             **_check_plugin(plugin_db))
+        emit("installed", part="lenet", seconds=ran["lenet"][0], nvcc_s=0.0, launches=0,
+             **_check_lenet(lenet_db))
+
+        libraries = sorted(f for f in tree_files(cache) if f.endswith(".so"))
+        new_build = sorted(tree_files(os.path.join(ROOT, "build")) - checkout_build)
+        new_parent = sorted(tree_files(inst) - site_parent)
+        emit("installed", part="files", cohort_s=wall_s, cache_libraries=libraries,
+             new_in_checkout_build=new_build, new_under_site_parent=new_parent)
+        if len(libraries) != 1 or new_build or new_parent:
+            raise AssertionError("installed: a library built outside the cache, or a file "
+                                 "written into the checkout or beside the site")
+        if built_at is not None and os.stat(built["library"]).st_mtime_ns != built_at:
+            raise AssertionError("installed: the cache's library was built again")
+        return launches
+    finally:
+        shutil.rmtree(inst, ignore_errors=True)
+        shutil.rmtree(runs, ignore_errors=True)
+
+
 #: Compiled bytecode of the modules this script's processes import.  Where
 #: the environment sets ``PYTHONDONTWRITEBYTECODE``, without a cache every
 #: process (a cohort's worker, a server, an admin command) compiles torch's
@@ -5038,6 +5406,7 @@ def run_phases():
     lint_launches = run("lint", phase_lint, device)
     mesh_launches, mesh_case = run("mesh", phase_mesh, device)
     bench_launches = run("benchmarks", phase_benchmarks, device, plain_round_ms)
+    installed_launches = run("installed", phase_installed, device)
     bench_total = sum(sum(v.values()) if isinstance(v, dict) else v
                       for v in bench_launches.values())
     emit("seconds", **seconds, phases=sum(seconds.values()))
@@ -5058,7 +5427,8 @@ def run_phases():
                      + sum(telemetry_launches.values()) + sum(network_launches.values())
                      + sum(day2_launches.values()) + device_plane_launches
                      + sum(diagnosis_launches.values()) + sum(serve_launches.values())
-                     + lint_launches + sum(mesh_launches.values()) + bench_total),
+                     + lint_launches + sum(mesh_launches.values()) + bench_total
+                     + sum(installed_launches.values())),
         "launches_by_path": {"main_path": launches["fused_gram"], "asha_bo": asha_bo_launches,
                              "hunt": hunt_launches, "cli": sum(cli_launches.values()),
                              "cli_runs": cli_launches, "evc": evc_launches,
@@ -5074,7 +5444,9 @@ def run_phases():
                              "serve_runs": serve_launches, "lint": lint_launches,
                              "mesh": sum(mesh_launches.values()),
                              "mesh_runs": mesh_launches, "benchmarks": bench_total,
-                             "benchmarks_runs": bench_launches},
+                             "benchmarks_runs": bench_launches,
+                             "installed": sum(installed_launches.values()),
+                             "installed_runs": installed_launches},
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "kernel_ms": main_case["kernel_ms"],

@@ -2,11 +2,16 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 library with a plain C interface, loaded with :mod:`ctypes`.  The output
-lives under ``build/orion_tpu_torch/`` at the root of the checkout (listed
-in ``.gitignore``), in a directory keyed by a hash of the source and the
-flags, so an edited kernel is rebuilt and an unchanged one is reused.
-Nothing here runs at import time: the CPU tests import every module of the
-port on machines without ``nvcc``.
+lives in a directory keyed by a hash of the source and the flags, so an
+edited kernel is rebuilt and an unchanged one is reused.  Where the
+package runs from a checkout (its parent directory holds the
+``pyproject.toml`` that names it), that is under ``build/orion_tpu_torch/``
+at the checkout's root (listed in ``.gitignore``); an installed package
+builds into ``$XDG_CACHE_HOME/orion_tpu_torch`` (``~/.cache/orion_tpu_torch``
+by default), since a system's ``site-packages`` is not the user's to write.
+The sources ship with the package (``pyproject.toml``'s package data).
+Nothing here builds at import time: the CPU tests import every module of
+the port on machines without ``nvcc``.
 """
 
 import ctypes
@@ -17,9 +22,27 @@ import subprocess
 import tempfile
 import threading
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-BUILD_DIR = os.path.join(_ROOT, "build", "orion_tpu_torch")
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PACKAGE, "ops", "csrc")
+
+
+def default_build_dir(package=_PACKAGE):
+    """The build directory of the package at ``package``: the checkout's
+    ``build/orion_tpu_torch`` when the package's parent holds the
+    ``pyproject.toml`` that names it, else the user's cache."""
+    root = os.path.dirname(package)
+    try:
+        with open(os.path.join(root, "pyproject.toml")) as handle:
+            checkout = os.path.basename(package) in handle.read()
+    except OSError:
+        checkout = False
+    if checkout:
+        return os.path.join(root, "build", "orion_tpu_torch")
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, "orion_tpu_torch")
+
+
+BUILD_DIR = default_build_dir()
 
 #: ``-Xptxas -v`` writes each kernel's register and spill report into the
 #: build log (``<library>.log``).

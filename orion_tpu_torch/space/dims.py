@@ -99,6 +99,12 @@ class Dimension:
             )
         return arr
 
+    def sample_host(self, rng, n=1):
+        """``n`` prior draws on the host from the numpy Generator ``rng``:
+        uniform cells decoded through :meth:`decode_np`."""
+        u = rng.uniform(size=(n, self.size))
+        return np.asarray(self.decode_np(u)).reshape((n,) + self.shape)
+
     def __repr__(self):
         return (f"{type(self).__name__}(name={self.name}, "
                 f"prior={self.prior_expr}, shape={self.shape})")
@@ -327,6 +333,15 @@ class Categorical(Dimension):
             return [row.reshape(self.shape) for row in block]
         return table[np.asarray(col, dtype=np.intp)].tolist()
 
+    def sample_host(self, rng, n=1):
+        u = rng.uniform(size=(n, self.size))
+        idx = self.decode_np(u)
+        if self.shape:
+            return np.asarray(
+                [self.from_index(row.reshape(self.shape)) for row in idx], dtype=object
+            )
+        return np.asarray([self.from_index(i) for i in idx[:, 0]], dtype=object)
+
     def cast(self, value):
         # Accept either a category literal or its string form.
         if value in self.categories:
@@ -377,6 +392,12 @@ class Fidelity(Dimension):
             b *= self.base
         out.append(int(self.high))
         return out
+
+    def decode_np(self, u):  # pragma: no cover - zero columns
+        return u
+
+    def encode_np(self, x):  # pragma: no cover - zero columns
+        return x
 
     def cast(self, value):
         return int(value)

@@ -4,7 +4,10 @@ Port of ``orion_tpu/space/space.py``: a name-sorted collection of
 dimensions with one shape-static codec between structured params and a
 flat ``(n, D)`` unit-cube array, which is what the algorithms operate on.
 Only the host (numpy) codec is ported: the suggest path moves the (q, D)
-rows to the host once and decodes there.
+rows to the host once and decodes there.  Prior sampling draws the
+uniform cube with a ``torch.Generator`` (on its device) and decodes it on
+the host the same way; torch is imported there, so that the codec alone
+(the CLI's prior parsing, the lint) does not load it.
 """
 
 import numpy as np
@@ -141,6 +144,13 @@ class Space:
             return np.zeros((0, 0), dtype=np.float32)
         return np.concatenate(cols, axis=1)
 
+    def sample_flat(self, generator, n):
+        """Prior sampling = uniform cube (encode is each prior's CDF): an
+        ``(n, n_cols)`` float32 tensor on ``generator``'s device."""
+        import torch
+
+        return torch.rand((n, self.n_cols), generator=generator, device=generator.device)
+
     # --- host <-> device boundary ------------------------------------------
     def arrays_to_params(self, arrays, fidelity_value=None):
         """Decoded arrays -> :class:`~orion_tpu_torch.space.params.ParamBatch`
@@ -210,3 +220,17 @@ class Space:
                 vals = np.asarray(col, dtype=float)
             out[dim.name] = vals
         return out
+
+    def sample(self, generator_or_seed, n=1, fidelity_value=None):
+        """End-to-end prior sampling returning structured params (a lazy
+        :class:`~orion_tpu_torch.space.params.ParamBatch`).  An int seed
+        draws on a CPU generator; a ``torch.Generator`` draws on its
+        device.  The cube is decoded on the host."""
+        import torch
+
+        if isinstance(generator_or_seed, torch.Generator):
+            generator = generator_or_seed
+        else:
+            generator = torch.Generator().manual_seed(int(generator_or_seed))
+        u = self.sample_flat(generator, n).cpu().numpy()
+        return self.arrays_to_params(self.decode_flat_np(u), fidelity_value=fidelity_value)

@@ -13,9 +13,10 @@ process therefore captures anew, paying one eager warm-up round and a
 capture per signature (about a second on an H100), and this cache does not
 try to persist graphs.  What does persist is the expensive step before
 them: ``nvcc`` building ``csrc/*.cu`` for ``sm_90a`` (seconds per source),
-cached by :mod:`orion_tpu_torch.ops._build` under ``build/orion_tpu_torch/``
-keyed by a hash of the source and the flags.  This module reports that
-directory.
+cached by :mod:`orion_tpu_torch.ops._build` keyed by a hash of the source
+and the flags, under the checkout's ``build/orion_tpu_torch/`` or, for an
+installed package, ``$XDG_CACHE_HOME/orion_tpu_torch``.  This module
+reports that directory.
 
 The reference's switch keeps its meaning: ``ORION_TPU_JIT_CACHE=off``
 reports the cache as disabled (the build still happens, at first use,

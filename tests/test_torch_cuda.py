@@ -1418,3 +1418,34 @@ def test_benchmarks_time_the_kernel_and_the_replayed_round_on_the_card(cuda):
     # The capture records its launch; each of the 2 x 2 replays counts one.
     assert shapes.count((16384, 256, 6)) >= 4, shapes
     assert [(dev, sig) for dev, sig, _entry in STEP_GRAPHS.entries()] == signatures
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["relu", "tanh", "gelu"])
+def test_lenet_example_training_steps_on_the_card_equal_the_cpu_run(cuda, act):
+    """``examples/torch_mnist_lenet.py``: from the same weights and batches,
+    four SGD steps and the forward pass on the card equal the CPU run within
+    1e-4 (TF32 off: float32 matmuls on both sides)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples", "torch_mnist_lenet.py")
+    spec = importlib.util.spec_from_file_location("torch_mnist_lenet_example", path)
+    lenet = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lenet)
+    x, y = lenet.synthetic_mnist()
+    xs, ys = torch.from_numpy(x), torch.from_numpy(y).long()
+    on_cpu = lenet.init_params(2, seed=0, device="cpu")
+    on_card = {k: v.to(cuda) for k, v in on_cpu.items()}
+    fn = lenet.ACTS[act]
+    for i in range(0, 4 * 128, 128):
+        on_cpu = lenet.sgd_step(on_cpu, xs[i:i + 128], ys[i:i + 128], 0.05, fn)
+        on_card = lenet.sgd_step(on_card, xs[i:i + 128].to(cuda), ys[i:i + 128].to(cuda),
+                                 0.05, fn)
+    for name, value in on_cpu.items():
+        assert on_card[name].device.type == "cuda"
+        torch.testing.assert_close(on_card[name].cpu(), value, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lenet.forward(on_card, xs[1536:].to(cuda), fn).cpu(),
+                               lenet.forward(on_cpu, xs[1536:], fn), atol=1e-4, rtol=0)
+    assert 0.0 <= lenet.train_eval(0.05, 128, 1, act, epochs=1, device=cuda) <= 1.0

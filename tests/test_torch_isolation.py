@@ -389,3 +389,45 @@ def test_benchmarks_stand_alone():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+#: Files outside the package that run on the port alone: its examples, the
+#: third-party plugin fixture and the quadratic box its tests hunt.
+STANDALONE_FILES = (
+    os.path.join("examples", "torch_mnist_lenet.py"),
+    os.path.join("examples", "torch_fidelity_sweep.py"),
+    os.path.join("tests", "fixtures", "torch_gd_plugin", "orion_tpu_torch_gd.py"),
+    os.path.join("tests", "fixtures", "torch_black_box.py"),
+)
+
+
+@pytest.mark.parametrize("path", STANDALONE_FILES)
+def test_examples_and_plugin_fixture_import_no_jax_or_reference(path):
+    bad = sorted({name for name in _imports(os.path.join(ROOT, path)) if _forbidden(name)})
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_examples_and_plugin_fixture_load_without_jax():
+    """In a fresh interpreter where importing ``jax`` or any ``orion_tpu``
+    module raises, every one of those files loads as a module (the scripts'
+    ``main`` stays behind its ``__main__`` guard)."""
+    paths = [os.path.join(ROOT, p) for p in STANDALONE_FILES]
+    code = (
+        "import importlib.abc, importlib.util, sys\n"
+        f"FORBIDDEN = {FORBIDDEN!r}\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if any(name == f or name.startswith(f + '.') for f in FORBIDDEN):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for i, path in enumerate({paths!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'standalone_{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
